@@ -33,3 +33,9 @@ jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_compilation_cache_dir",
                   os.path.expanduser("~/.cache/jax_compilation"))
 jax.config.update("jax_persistent_cache_min_compile_time_secs", 5.0)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA CUDA device (the PyTorch port's kernels); "
+                   "skipped without one")
