@@ -1,20 +1,26 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch port (`unsupervised_detection_tpu_torch`).
 
-    python3 chip_smoke.py          # needs one CUDA card; takes no arguments
+    python3 chip_smoke.py                      # needs one CUDA card
+    python3 chip_smoke.py --times [--root DIR] # kernel times only
 
 Phases, in order, each printed with its wall seconds:
 
 * card    -- the card's name and power limit from nvidia-smi;
-* build   -- the CUDA kernels of csrc/ built by one nvcc call (seconds, and
-             ptxas' registers / shared memory per kernel);
-* kernels -- each kernel against its plain PyTorch version on the card at the
-             five PWC level shapes of a 384x640 frame (cost volume at r=4 and
-             r=2, warp at L5..L2 with flows that drive taps past every clamp),
-             in float32 and bfloat16, with the stated tolerance; then each
-             kernel's time at batch 8 (CUDA events) beside its bound, its
-             plain version's time and a yardstick PyTorch call where one
-             exists;
+* build   -- the CUDA kernels of csrc/, one nvcc per source started together
+             (seconds, and ptxas' registers / spills / shared memory);
+* kernels -- each kernel against its plain PyTorch version on the card: the
+             cost volume at the five PWC level shapes of a 384x640 frame and
+             at ragged shapes (1x1 and 2x3 levels, W, H and C off every tile
+             and chunk, odd C, batch 1), r=4 and r=2; the warp at L5..L2 and
+             ragged shapes (C=1, C % 8 != 0) with flows that drive taps past
+             every clamp; the tile copy on both axes at offset 2; in float32
+             and bfloat16, with the stated tolerance. Then each kernel's time
+             at batch 8: CUDA events over 20 back-to-back calls (`ms`, host
+             overhead included) and the kernel's own device time per launch
+             from torch.profiler over 20 launches (`device_ms`), beside its
+             bound, the share of the bound, its plain version's time and a
+             yardstick PyTorch call where one exists;
 * path    -- the flagship forward (`benchlib.build_forward`) and
              `Evaluator.infer_metrics` at full width (reader 384x640, working
              192x384, PWC 6 levels r=4, generator cnum 32) with seeded random
@@ -22,18 +28,29 @@ Phases, in order, each printed with its wall seconds:
              per forward (5 cost volume, 4 warp), the float32 card mask
              against the same forward on the CPU for one frame pair, and
              frames/s from CUDA events;
+* repro   -- the port of tools/repro_mosaic_dynamic_dma.py (`dynamic_copy.
+             repro`), the tile copy's own path: 2 launches, bit-equal;
 * profile -- device time by kernel over three of the path's forwards in
              each dtype (torch.profiler), and the device's busy share.
 
+`--times` runs only the cost volume's and the warp's timing at batch 8
+(r=4), per level and summed over one forward, for the package under `--root`
+(default: this checkout). Given a `git archive` export of another commit as
+`--root`, it times that commit's kernels with this script's timer, so two
+commits compare in one call on one card.
+
 Any failed check raises, and the script exits non-zero; it also exits
 non-zero, printing no result, when no CUDA device is available. The line
-before the last is a JSON object with one entry per kernel; the last line is
+before the last is the card's name and power limit, the one before it a
+JSON object with one entry per kernel; the last line is
 {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
+import os
 import subprocess
 import sys
 import time
@@ -41,17 +58,42 @@ import time
 import torch
 import torch.nn.functional as F
 
-from unsupervised_detection_tpu_torch import Config
-from unsupervised_detection_tpu_torch.benchlib import build_forward, random_images, time_cuda
-from unsupervised_detection_tpu_torch.eval import Evaluator
-from unsupervised_detection_tpu_torch.ops import _build
-from unsupervised_detection_tpu_torch.ops.cost_volume import cost_volume, cost_volume_plain
-from unsupervised_detection_tpu_torch.ops.warp import dense_image_warp, warp_plain
 
-PHASES = ("card", "build", "kernels", "path", "profile")
+def _args() -> argparse.Namespace:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--times", action="store_true",
+                    help="time the cost volume and the warp only")
+    ap.add_argument("--root", default=None,
+                    help="import the port from this tree (default: this checkout)")
+    return ap.parse_args()
+
+
+ARGS = _args() if __name__ == "__main__" else argparse.Namespace(times=False, root=None)
+if ARGS.root:
+    sys.path.insert(0, os.path.abspath(ARGS.root))
+
+from unsupervised_detection_tpu_torch import Config  # noqa: E402
+from unsupervised_detection_tpu_torch.benchlib import (  # noqa: E402
+    build_forward, random_images, time_cuda)
+from unsupervised_detection_tpu_torch.eval import Evaluator  # noqa: E402
+from unsupervised_detection_tpu_torch.ops import _build  # noqa: E402
+from unsupervised_detection_tpu_torch.ops.cost_volume import (  # noqa: E402
+    cost_volume, cost_volume_plain)
+from unsupervised_detection_tpu_torch.ops.warp import dense_image_warp, warp_plain  # noqa: E402
+
+PHASES = ("card", "build", "kernels", "path", "repro", "profile")
 BATCH = 8
 # PWC pyramid level -> (H, W, C) at the 384x640 reader resolution
 LEVELS = {6: (6, 10, 196), 5: (12, 20, 128), 4: (24, 40, 96), 3: (48, 80, 64), 2: (96, 160, 32)}
+# (B, H, W, C) off the level shapes: the 1x1 and 2x3 levels of 64x64 and
+# 128x192 pyramids, batch 1, H and W off every row and pixel tile, C off the
+# staging chunk (196, 36), odd C (33: 4- and 2-byte copies), C=98 (bfloat16
+# 4-byte copies); for the warp C=1 and C % 8 != 0.
+RAGGED_COST = ((1, 1, 1, 196), (1, 2, 3, 96), (1, 6, 10, 196), (1, 12, 20, 128),
+               (1, 13, 70, 64), (3, 7, 11, 33), (2, 5, 9, 98), (1, 24, 40, 36))
+RAGGED_WARP = ((1, 2, 2, 1), (1, 2, 3, 96), (1, 6, 10, 196), (3, 7, 11, 33),
+               (1, 12, 20, 1), (1, 13, 70, 64), (2, 5, 9, 12))
+TIMED_ITERS = 20
 # H100 SXM peaks (NVIDIA data sheet, dense): memory 3.35 TB/s; float32 outside
 # the tensor cores 67 TFLOP/s; bfloat16 989 TFLOP/s.
 MEM_BYTES_PER_S = 3.35e12
@@ -75,7 +117,12 @@ KERNEL_SOURCES = {
                     "unsupervised_detection_tpu/ops/pallas/cost_volume_kernel.py:57"),
     "warp": ("unsupervised_detection_tpu_torch/csrc/warp.cu",
              "unsupervised_detection_tpu/ops/pallas/warp_kernel.py:219"),
+    "dynamic_copy": ("unsupervised_detection_tpu_torch/csrc/dynamic_copy.cu",
+                     "tools/repro_mosaic_dynamic_dma.py:34"),
 }
+# device-side kernel names (substrings of the profiler's event names)
+KERNEL_SYMBOLS = {"cost_volume": "cost_volume_kernel", "warp": "warp_kernel",
+                  "dynamic_copy": "dynamic_copy_kernel"}
 
 
 def log(msg: str) -> None:
@@ -144,83 +191,177 @@ def tolerance(kind: str, dtype, want: torch.Tensor) -> float:
     return (COST_TOL if kind == "cost_volume" else WARP_TOL)[dtype] * top
 
 
-def phase_kernels(report: dict) -> None:
+def device_ms(fn, *args, kernel: str, iters: int = TIMED_ITERS, tries: int = 3) -> float:
+    """Device ms per launch of the CUDA kernel named `kernel`: its own time on
+    the card from torch.profiler over `iters` calls of fn(*args), each of
+    which launches it once, after one warm-up call. The mean is over the
+    launches the trace holds: a trace may drop some (seen on the H100: 0 of
+    20 in a process's first trace, 19 of 20 once), so a trace with fewer
+    than half of them is taken again, up to `tries` times."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn(*args)
+    torch.cuda.synchronize()
+    seen = []
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn(*args)
+            torch.cuda.synchronize()
+        us = [e.time_range.elapsed_us() for e in prof.events()
+              if e.device_type == DeviceType.CUDA and kernel in e.name]
+        if 2 * len(us) >= iters:
+            return sum(us) / len(us) / 1e3
+        seen.append(len(us))
+    raise AssertionError(f"profiler saw {seen} of {iters} launches of {kernel} in {tries} traces")
+
+
+def dtype_name(dtype) -> str:
+    return str(dtype).replace("torch.", "")
+
+
+def randn(gen, shape, dtype):
+    return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+
+def check_kernels() -> dict:
+    """Every kernel against its plain version; returns max abs err by kernel."""
+    from unsupervised_detection_tpu_torch.ops.dynamic_copy import (
+        dynamic_copy, dynamic_copy_plain)
+
     gen = torch.Generator(device="cuda").manual_seed(0)
-    cv_err = wp_err = 0.0
+    err = {"cost_volume": 0.0, "warp": 0.0, "dynamic_copy": 0.0}
+    level_shapes = [(f"L{lvl}", (BATCH, h, w, c)) for lvl, (h, w, c) in LEVELS.items()]
     for dtype in DTYPES:
-        dn = str(dtype).replace("torch.", "")
-        for lvl, (h, w, c) in LEVELS.items():
-            c1 = torch.randn((BATCH, h, w, c), generator=gen, device="cuda").to(dtype)
-            wp = torch.randn((BATCH, h, w, c), generator=gen, device="cuda").to(dtype)
+        dn = dtype_name(dtype)
+        for tag, shape in level_shapes + [("ragged", s) for s in RAGGED_COST]:
+            c1, wp = randn(gen, shape, dtype), randn(gen, shape, dtype)
             for r in (4, 2):
                 want = cost_volume_plain(c1, wp, r)
-                cv_err = max(cv_err, check(
-                    f"cost_volume L{lvl} r={r} {dn} {(BATCH, h, w, c)}",
-                    cost_volume(c1, wp, r), want, tolerance("cost_volume", dtype, want)))
-            if lvl == 6:
-                continue
-            flow = clamp_flow(gen, BATCH, h, w, dtype)
-            want = warp_plain(c1, flow)
-            wp_err = max(wp_err, check(f"warp L{lvl} {dn} {(BATCH, h, w, c)}",
-                                       dense_image_warp(c1, flow), want,
-                                       tolerance("warp", dtype, want)))
+                err["cost_volume"] = max(err["cost_volume"], check(
+                    f"cost_volume {tag} r={r} {dn} {shape}", cost_volume(c1, wp, r), want,
+                    tolerance("cost_volume", dtype, want)))
+        for tag, shape in level_shapes[1:] + [("ragged", s) for s in RAGGED_WARP]:
+            image = randn(gen, shape, dtype)
+            flow = clamp_flow(gen, *shape[:3], dtype)
+            want = warp_plain(image, flow)
+            err["warp"] = max(err["warp"], check(
+                f"warp {tag} {dn} {shape}", dense_image_warp(image, flow), want,
+                tolerance("warp", dtype, want)))
+    for axis, shape in ((1, (128, 1024)), (0, (1024, 256))):
+        src = torch.rand(shape, generator=gen, device="cuda")
+        offs = torch.tensor([2], dtype=torch.int32, device="cuda")
+        want = dynamic_copy_plain(offs, src, axis)
+        got = dynamic_copy(offs, src, axis)
+        err["dynamic_copy"] = max(err["dynamic_copy"], check(
+            f"dynamic_copy axis {axis} offset 2 {shape}", got, want, 0.0))
     torch.cuda.synchronize()
+    return err
 
-    # time at batch 8, per level and summed over one forward (r=4)
+
+def grid_sample_args(image, flow):
+    """`F.grid_sample` arguments computing the warp up to rounding (border
+    padding = the TF clamps), NCHW view of the image."""
+    _, h, w, _ = image.shape
+    ys = torch.arange(h, device="cuda", dtype=torch.float32).view(1, h, 1)
+    xs = torch.arange(w, device="cuda", dtype=torch.float32).view(1, 1, w)
+    f = flow.float()
+    grid = torch.stack([(xs - f[..., 1]) * (2.0 / (w - 1)) - 1.0,
+                        (ys - f[..., 0]) * (2.0 / (h - 1)) - 1.0], dim=-1).to(image.dtype)
+    return image.permute(0, 3, 1, 2), grid, "bilinear", "border", True
+
+
+def time_level(name, fn, args, bound, plain=None, library=None) -> dict:
+    """One kernel at one shape: CUDA-event ms, device ms, bound and share,
+    plain and library ms where given."""
+    ms = time_cuda(fn, *args, iters=TIMED_ITERS, repeats=5)
+    dev = device_ms(fn, *args, kernel=KERNEL_SYMBOLS[name])
+    row = {"ms": ms, "device_ms": dev, "bound_ms": bound[0], "bound_by": bound[1],
+           "share_of_bound": bound[0] / dev}
+    if plain is not None:
+        row["plain_ms"] = time_cuda(plain, *args, iters=3, warmup=1, repeats=1)
+    if library is not None:
+        row["library_ms"] = time_cuda(library[0], *library[1], iters=TIMED_ITERS, repeats=5)
+    return row
+
+
+def time_kernels(with_plain: bool = True) -> dict:
+    """The cost volume (r=4) and the warp at batch 8 at each level, and their
+    sums over one forward's launches, per dtype: {dtype: {kernel: sums}}."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    keys = ("ms", "device_ms", "plain_ms", "bound_ms", "library_ms")
     totals = {}
     for dtype in DTYPES:
-        dn = str(dtype).replace("torch.", "")
-        # per kernel: [ms, plain_ms, bound_ms, library_ms, bound_ms by bytes, by operations]
-        t = {k: [0.0] * 6 for k in ("cost_volume", "warp")}
+        dn = dtype_name(dtype)
+        t = {k: dict.fromkeys(keys, 0.0) for k in ("cost_volume", "warp")}
+        by = {k: {"bytes": 0.0, "operations": 0.0} for k in t}
         for lvl, (h, w, c) in LEVELS.items():
-            c1 = torch.randn((BATCH, h, w, c), generator=gen, device="cuda").to(dtype)
-            wp = torch.randn((BATCH, h, w, c), generator=gen, device="cuda").to(dtype)
-            ms = time_cuda(cost_volume, c1, wp, 4, iters=20, repeats=5)
-            plain = time_cuda(cost_volume_plain, c1, wp, 4, iters=3, warmup=1, repeats=1)
-            bnd, by = cost_bound(BATCH, h, w, c, 4, dtype)
-            log("kernels: " + json.dumps({"time": f"cost_volume L{lvl} r=4 {dn} batch {BATCH}",
-                                          "ms": ms, "plain_ms": plain, "bound_ms": bnd,
-                                          "bound_by": by}))
-            for i, v in enumerate((ms, plain, bnd)):
-                t["cost_volume"][i] += v
-            t["cost_volume"][4 if by == "bytes" else 5] += bnd
-            if lvl == 6:
-                continue
-            flow = (torch.randn((BATCH, h, w, 2), generator=gen, device="cuda") * 2.0).to(dtype)
-            ms = time_cuda(dense_image_warp, c1, flow, iters=20, repeats=5)
-            plain = time_cuda(warp_plain, c1, flow, iters=3, warmup=1, repeats=1)
-            bnd, by = warp_bound(BATCH, h, w, c, dtype)
-            # yardstick: one grid_sample on the same image and an equivalent grid
-            img = c1.permute(0, 3, 1, 2)
-            ys = torch.arange(h, device="cuda", dtype=torch.float32).view(1, h, 1)
-            xs = torch.arange(w, device="cuda", dtype=torch.float32).view(1, 1, w)
-            f = flow.float()
-            grid = torch.stack([(xs - f[..., 1]) * (2.0 / (w - 1)) - 1.0,
-                                (ys - f[..., 0]) * (2.0 / (h - 1)) - 1.0], dim=-1).to(dtype)
-            lib = time_cuda(F.grid_sample, img, grid, "bilinear", "border", True, iters=20,
-                            repeats=5)
-            # same function up to rounding (border padding = the TF clamps); reported
-            lib_err = (F.grid_sample(img, grid, "bilinear", "border", True).permute(0, 2, 3, 1)
-                       .float() - warp_plain(c1, flow).float()).abs().max().item()
-            log("kernels: " + json.dumps({"time": f"warp L{lvl} {dn} batch {BATCH}", "ms": ms,
-                                          "plain_ms": plain, "bound_ms": bnd, "bound_by": by,
-                                          "library_ms": lib, "library_max_abs_diff": lib_err}))
-            for i, v in enumerate((ms, plain, bnd, lib)):
-                t["warp"][i] += v
-            t["warp"][4 if by == "bytes" else 5] += bnd
+            shape = (BATCH, h, w, c)
+            c1, wp = randn(gen, shape, dtype), randn(gen, shape, dtype)
+            rows = {"cost_volume": time_level(
+                "cost_volume", cost_volume, (c1, wp, 4), cost_bound(*shape, 4, dtype),
+                plain=cost_volume_plain if with_plain else None)}
+            if lvl != 6:
+                flow = (torch.randn((BATCH, h, w, 2), generator=gen, device="cuda") * 2.0
+                        ).to(dtype)
+                gs = grid_sample_args(c1, flow)
+                # same function up to rounding; reported
+                lib_err = (F.grid_sample(*gs).permute(0, 2, 3, 1).float()
+                           - warp_plain(c1, flow).float()).abs().max().item()
+                rows["warp"] = time_level(
+                    "warp", dense_image_warp, (c1, flow), warp_bound(*shape, dtype),
+                    plain=warp_plain if with_plain else None, library=(F.grid_sample, gs))
+                rows["warp"]["library_max_abs_diff"] = lib_err
+            for name, row in rows.items():
+                log("kernels: " + json.dumps({"time": f"{name} L{lvl} {dn} batch {BATCH}"
+                                              + (" r=4" if name == "cost_volume" else ""),
+                                              **row}))
+                for k in keys:
+                    t[name][k] += row.get(k, 0.0)
+                by[name][row["bound_by"]] += row["bound_ms"]
+        for name in t:
+            t[name]["bound_by"] = max(by[name], key=by[name].get)
+            t[name]["share_of_bound"] = t[name]["bound_ms"] / t[name]["device_ms"]
+        t["cost_volume"]["library_ms"] = None
         totals[dn] = t
         log("kernels: " + json.dumps({"per_forward": dn, "batch": BATCH, **t}))
+    return totals
+
+
+def time_copy() -> dict:
+    """The tile copy at offset 2, lane case (the repro's first)."""
+    from unsupervised_detection_tpu_torch.ops.dynamic_copy import (
+        dynamic_copy, dynamic_copy_plain)
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    src = torch.rand((128, 1024), generator=gen, device="cuda")
+    offs = torch.tensor([2], dtype=torch.int32, device="cuda")
+    row = time_level("dynamic_copy", dynamic_copy, (offs, src, 1),
+                     bound_ms(2 * 128 * 256 * 4, 0.0, torch.float32),
+                     plain=dynamic_copy_plain)
+    # no single PyTorch call takes the offset from device memory
+    row["library_ms"] = None
+    log("kernels: " + json.dumps({"time": "dynamic_copy axis 1 offset 2", **row}))
+    return row
+
+
+def phase_kernels(report: dict) -> None:
+    err = check_kernels()
+    totals = time_kernels()
+    copy = time_copy()
     # the JSON line: float32, summed over one forward's launches at batch 8
-    for name, err, has_lib in (("cost_volume", cv_err, False), ("warp", wp_err, True)):
-        ms, plain, bnd, lib, by_bytes, by_ops = totals["float32"][name]
-        report[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bnd,
-                        "bound_by": "bytes" if by_bytes >= by_ops else "operations",
-                        "library_ms": lib if has_lib else None}
+    for name in ("cost_volume", "warp"):
+        report[name] = {"max_abs_err": err[name], **totals["float32"][name]}
+    report["dynamic_copy"] = {"max_abs_err": err["dynamic_copy"], **copy}
 
 
 def reset_counts() -> None:
+    from unsupervised_detection_tpu_torch.ops.dynamic_copy import dynamic_copy
+
     cost_volume.launches = 0
     dense_image_warp.launches = 0
+    dynamic_copy.launches = 0
 
 
 def expect_counts(what: str, forwards: int = 1) -> tuple[int, int]:
@@ -350,10 +491,38 @@ def phase_profile(forwards: dict, images, iters: int = 3, top: int = 12) -> None
                 f"{count // iters:4d}/fwd {name[:90]}")
 
 
+def phase_repro(report: dict) -> None:
+    """The tile copy's own path: the port of the Mosaic repro's main."""
+    from unsupervised_detection_tpu_torch.ops.dynamic_copy import dynamic_copy, repro
+
+    reset_counts()
+    result = repro()
+    torch.cuda.synchronize()
+    launches = dynamic_copy.launches
+    log(f"repro: {result}, launches dynamic_copy={launches}")
+    if launches != 2 or not all(result.values()):
+        raise AssertionError(f"repro: {result} with {launches} launches (expected 2, all equal)")
+    report["launches"]["dynamic_copy"] = launches
+
+
+def main_times() -> int:
+    """Kernel times only, for the package under --root."""
+    log(f"card: {card_line()}")
+    lib = _build.library()
+    log(f"build: nvcc {lib.build_seconds:.2f} s -> {lib.path}")
+    totals = time_kernels(with_plain=False)
+    print(json.dumps({"times": {dn: {k: {"device_ms": v["device_ms"], "ms": v["ms"]}
+                                     for k, v in t.items()} for dn, t in totals.items()},
+                      "root": os.path.abspath(ARGS.root or os.path.dirname(__file__))}))
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
+    if ARGS.times:
+        return main_times()
 
     t_run = time.perf_counter()
     report: dict = {}
@@ -365,12 +534,14 @@ def main() -> int:
             lib = _build.library()
             log(f"build: nvcc {lib.build_seconds:.2f} s -> {lib.path}")
             for line in lib.log.splitlines():
-                if "registers" in line or "Compiling entry" in line:
+                if any(w in line for w in ("registers", "spill", "Compiling entry")):
                     log("build: " + line.strip())
         elif phase == "kernels":
             phase_kernels(report)
         elif phase == "path":
             forwards, images = phase_path(report)
+        elif phase == "repro":
+            phase_repro(report)
         else:
             phase_profile(forwards, images)
         log(f"phase {phase}: {time.perf_counter() - t0:.2f} s")
@@ -382,8 +553,9 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": report["launches"][name], "max_abs_err": k["max_abs_err"],
-            "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-            "bound_by": k["bound_by"], "library_ms": k["library_ms"]})
+            "ms": k["ms"], "device_ms": k["device_ms"], "plain_ms": k["plain_ms"],
+            "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
+            "share_of_bound": k["share_of_bound"], "library_ms": k["library_ms"]})
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

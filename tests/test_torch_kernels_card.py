@@ -12,10 +12,19 @@ import torch
 
 from torch_parity import clamp_flow
 from unsupervised_detection_tpu_torch.ops.cost_volume import cost_volume, cost_volume_plain
+from unsupervised_detection_tpu_torch.ops.dynamic_copy import dynamic_copy, dynamic_copy_plain
 from unsupervised_detection_tpu_torch.ops.warp import dense_image_warp, warp_plain
 
-# PWC level-6 and level-2 shapes at batch 2 (reader 384x640)
-SHAPES = ((2, 6, 10, 196), (2, 96, 160, 32))
+# PWC level-6 and level-2 shapes at batch 2 (reader 384x640), then ragged
+# ones: the 1x1 and 2x3 levels of small pyramids, batch 1, H and W off the
+# kernel's row and pixel tiles, C off its 64-byte chunk, odd C (4- and
+# 2-byte staging copies), C=98 (4-byte copies in bfloat16)
+SHAPES = ((2, 6, 10, 196), (2, 96, 160, 32), (1, 1, 1, 196), (1, 2, 3, 96),
+          (1, 13, 70, 64), (3, 7, 11, 33), (2, 5, 9, 98))
+# PWC level-5 and level-2 shapes, then ragged ones: C=1 (masks), C % 8 != 0
+# (the scalar path), the smallest image the warp takes, H and W odd
+WARP_SHAPES = ((2, 12, 20, 128), (2, 96, 160, 32), (1, 2, 2, 1), (1, 12, 20, 1),
+               (3, 7, 11, 33), (2, 5, 9, 12), (1, 13, 70, 64))
 
 
 @pytest.fixture
@@ -48,7 +57,7 @@ def test_cost_volume_kernel_matches_plain(cuda_device, shape):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", ((2, 12, 20, 128), (2, 96, 160, 32)))
+@pytest.mark.parametrize("shape", WARP_SHAPES)
 def test_warp_kernel_bit_equal_to_plain(cuda_device, shape):
     # the kernel repeats the plain version's arithmetic op for op
     rs = np.random.RandomState(1)
@@ -61,3 +70,18 @@ def test_warp_kernel_bit_equal_to_plain(cuda_device, shape):
         torch.cuda.synchronize()
         assert dense_image_warp.launches == before + 1
         assert torch.equal(got, warp_plain(im, fl))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("axis", (0, 1))
+def test_dynamic_copy_kernel_bit_equal_to_slice(cuda_device, axis):
+    # the repro's buffers and offset 2; the offset stays on the card
+    shape = (1024, 256) if axis == 0 else (128, 1024)
+    src = torch.from_numpy(np.random.RandomState(2).rand(*shape).astype(np.float32))
+    offs = torch.tensor([2], dtype=torch.int32)
+    want = dynamic_copy_plain(offs, src, axis)
+    before = dynamic_copy.launches
+    got = dynamic_copy(offs.to(cuda_device), src.to(cuda_device), axis)
+    torch.cuda.synchronize()
+    assert dynamic_copy.launches == before + 1
+    assert torch.equal(got.cpu(), want)

@@ -18,19 +18,28 @@
 // and writes the output once: (2*B*H*W*C + B*H*W*2) * itemsize bytes (the
 // flow has the image's dtype), for ~10 operations per output element.
 //
-// Design: one thread per output element, threads running along C, so the
-// 32 lanes of a warp read 32 neighbouring channels of one tap row (128
-// bytes in float32) and write 32 neighbouring outputs. Each thread
-// recomputes its pixel's coordinates from the flow (two loads shared by the
-// lanes of the pixel, served by L1). The lerp uses explicitly rounded
-// intrinsics (__fmul_rn/__fadd_rn, never contracted to an FMA) and, in
-// bfloat16, rounds after every operation as PyTorch's elementwise ops do, so
-// the kernel is bit-equal to the plain PyTorch version.
+// Design: one thread per pixel and vector of kVec=8 channels. The thread
+// reads its pixel's flow and computes the floors and weights once for the
+// vector, not once per channel, then gathers each of
+// the four taps as 16-byte loads (one in bfloat16, two in float32), lerps
+// two channels at a time (in bfloat16 one packed convert rounds both,
+// halving the float32 -> bfloat16 conversions) and writes the
+// vector with 16-byte stores. Threads run along the vectors of
+// a pixel, so the lanes of one pixel read one contiguous run of each tap
+// row. Where C % 8 != 0 or a pointer is not 16-byte aligned the thread
+// walks its (up to 8) channels with scalar loads: C=1 masks take this
+// path. The lerp uses explicitly rounded intrinsics (__fmul_rn/__fadd_rn,
+// never contracted to an FMA) and, in bfloat16, rounds after every
+// operation as PyTorch's elementwise ops do, so the kernel is bit-equal to
+// the plain PyTorch version.
+#include <cstdint>
+
 #include "common.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kVec = 8;   // channels per thread
 
 // Rounds a float32 result to the precision of storage type T.
 template <typename T> struct Round {
@@ -50,14 +59,64 @@ __device__ __forceinline__ float mix(float a, float lo, float hi) {
   return Round<T>::f(__fadd_rn(m, lo));
 }
 
+// Rounds two float32 results to the precision of storage type T; bfloat16
+// rounds both with one packed convert (same round-to-nearest-even as one
+// __float2bfloat16 each).
+template <typename T> struct Round2 {
+  __device__ __forceinline__ static float2 f(float2 v) { return v; }
+};
+template <> struct Round2<__nv_bfloat16> {
+  __device__ __forceinline__ static float2 f(float2 v) {
+    return __bfloat1622float2(__float22bfloat162_rn(v));
+  }
+};
+
+// mix() on two channels at once
+template <typename T>
+__device__ __forceinline__ float2 mix2(float a, float2 lo, float2 hi) {
+  const float2 d = Round2<T>::f(make_float2(__fsub_rn(hi.x, lo.x), __fsub_rn(hi.y, lo.y)));
+  const float2 m = Round2<T>::f(make_float2(__fmul_rn(a, d.x), __fmul_rn(a, d.y)));
+  return Round2<T>::f(make_float2(__fadd_rn(m.x, lo.x), __fadd_rn(m.y, lo.y)));
+}
+
+// kVec elements of T held as 16-byte words (one in bfloat16, two in
+// float32), moved with 16-byte loads and stores.
+template <typename T> struct Vec {
+  static constexpr int kWords = sizeof(T) * kVec / 16;
+  uint4 u[kWords];
+  __device__ __forceinline__ void load(const T* p) {
+#pragma unroll
+    for (int w = 0; w < kWords; ++w) u[w] = reinterpret_cast<const uint4*>(p)[w];
+  }
+  __device__ __forceinline__ void store(T* p) const {
+#pragma unroll
+    for (int w = 0; w < kWords; ++w) reinterpret_cast<uint4*>(p)[w] = u[w];
+  }
+  __device__ __forceinline__ float2 get2(int i) const {   // elements i, i+1
+    const T* e = reinterpret_cast<const T*>(u);
+    return make_float2(udt::to_f(e[i]), udt::to_f(e[i + 1]));
+  }
+  // elements i, i+1 from values already rounded to T's precision (so
+  // bfloat16 keeps the high half of each float32, exactly)
+  __device__ __forceinline__ void set2(int i, float2 v) {
+    if constexpr (sizeof(T) == 2) {
+      reinterpret_cast<uint32_t*>(u)[i / 2] =
+          (__float_as_uint(v.x) >> 16) | (__float_as_uint(v.y) & 0xffff0000u);
+    } else {
+      reinterpret_cast<float*>(u)[i] = v.x;
+      reinterpret_cast<float*>(u)[i + 1] = v.y;
+    }
+  }
+};
+
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 warp_kernel(const T* __restrict__ image, const T* __restrict__ flow,
-            T* __restrict__ out, int H, int W, int C, long long total) {
+            T* __restrict__ out, int H, int W, int C, int groups, bool vec, long long total) {
   const long long idx = blockIdx.x * static_cast<long long>(kThreads) + threadIdx.x;
   if (idx >= total) return;
-  const int c = static_cast<int>(idx % C);
-  const long long pix = idx / C;
+  const int g = static_cast<int>(idx % groups);
+  const long long pix = idx / groups;
   const int x = static_cast<int>(pix % W);
   const int y = static_cast<int>((pix / W) % H);
   const long long b = pix / (static_cast<long long>(H) * W);
@@ -69,21 +128,45 @@ warp_kernel(const T* __restrict__ image, const T* __restrict__ flow,
   const float ay = Round<T>::f(fminf(fmaxf(__fsub_rn(qy, fy), 0.f), 1.f));
   const float ax = Round<T>::f(fminf(fmaxf(__fsub_rn(qx, fx), 0.f), 1.f));
 
-  const T* tap = image + ((b * H + static_cast<int>(fy)) * W + static_cast<int>(fx)) * C + c;
+  const int c0 = g * kVec;
+  const T* tap = image + ((b * H + static_cast<int>(fy)) * W + static_cast<int>(fx)) * C + c0;
   const long long row = static_cast<long long>(W) * C;
-  const float top = mix<T>(ax, udt::to_f(tap[0]), udt::to_f(tap[C]));
-  const float bottom = mix<T>(ax, udt::to_f(tap[row]), udt::to_f(tap[row + C]));
-  out[idx] = udt::from_f<T>(mix<T>(ay, top, bottom));
+  T* dst = out + pix * C + c0;
+  if (vec) {
+    Vec<T> tl, tr, bl, br, o;
+    tl.load(tap);
+    tr.load(tap + C);
+    bl.load(tap + row);
+    br.load(tap + row + C);
+#pragma unroll
+    for (int i = 0; i < kVec; i += 2) {
+      const float2 top = mix2<T>(ax, tl.get2(i), tr.get2(i));
+      const float2 bottom = mix2<T>(ax, bl.get2(i), br.get2(i));
+      o.set2(i, mix2<T>(ay, top, bottom));
+    }
+    o.store(dst);
+  } else {
+    const int n = min(kVec, C - c0);
+    for (int i = 0; i < n; ++i) {
+      const float top = mix<T>(ax, udt::to_f(tap[i]), udt::to_f(tap[C + i]));
+      const float bottom = mix<T>(ax, udt::to_f(tap[row + i]), udt::to_f(tap[row + C + i]));
+      dst[i] = udt::from_f<T>(mix<T>(ay, top, bottom));
+    }
+  }
 }
 
 template <typename T>
 cudaError_t launch(const void* image, const void* flow, void* out, int B, int H,
                    int W, int C, cudaStream_t stream) {
-  const long long total = static_cast<long long>(B) * H * W * C;
+  const int groups = (C + kVec - 1) / kVec;
+  const bool vec = C % kVec == 0 &&
+                   ((reinterpret_cast<uintptr_t>(image) | reinterpret_cast<uintptr_t>(out)) &
+                    15) == 0;
+  const long long total = static_cast<long long>(B) * H * W * groups;
   const long long blocks = (total + kThreads - 1) / kThreads;
   warp_kernel<T><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
       static_cast<const T*>(image), static_cast<const T*>(flow), static_cast<T*>(out),
-      H, W, C, total);
+      H, W, C, groups, vec, total);
   return cudaGetLastError();
 }
 

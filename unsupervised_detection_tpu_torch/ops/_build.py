@@ -1,16 +1,19 @@
 """Build the port's CUDA kernels and load them with ctypes.
 
-Every `csrc/*.cu` is compiled by ONE `nvcc` call into a shared library with
-a plain C interface (no PyTorch headers, so the build takes seconds):
+Every `csrc/*.cu` is compiled by its own `nvcc` process, all started
+together, into an object file; one more call links them into a shared
+library with a plain C interface (no PyTorch headers, so the build takes
+seconds):
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -Xptxas -v -o build/libudt_kernels_<hash>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
+         -Xcompiler -fPIC -Xptxas -v -c -o build/<name>_<hash>.o csrc/<name>.cu
+    nvcc -shared -o build/libudt_kernels_<hash>.so build/*_<hash>.o
 
 The library is built at first use into `unsupervised_detection_tpu_torch/
 build/` (listed in .gitignore), named by a hash of the sources and flags so
 an edited source rebuilds. `-Xptxas -v` only reports each kernel's
-registers and shared memory (kept in `KernelLibrary.log`). Nothing here
-runs at import time.
+registers, spills and shared memory (kept in `KernelLibrary.log`). Nothing
+here runs at import time.
 """
 
 from __future__ import annotations
@@ -31,7 +34,7 @@ PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PACKAGE_DIR, "csrc")
 BUILD_DIR = os.path.join(PACKAGE_DIR, "build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # dtype codes of the C interface (csrc/common.cuh udt::DType)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -83,8 +86,40 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.udt_cost_volume.restype = _I
     lib.udt_warp.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I, _P]
     lib.udt_warp.restype = _I
+    lib.udt_dynamic_copy.argtypes = [_P, _P, _P, _I, _I, _I, _I, _P]
+    lib.udt_dynamic_copy.restype = _I
     lib.udt_error_string.argtypes = [_I]
     lib.udt_error_string.restype = ctypes.c_char_p
+
+
+def _start(cmd: list[str]) -> subprocess.Popen:
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def _run(procs: list[tuple[list[str], subprocess.Popen]]) -> str:
+    """Wait for every process, then raise if any failed."""
+    outs = [proc.communicate()[0] for _, proc in procs]
+    for (cmd, proc), out in zip(procs, outs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed with code {proc.returncode}:\n"
+                               f"{' '.join(cmd)}\n{out}")
+    return "".join(outs)
+
+
+def _compile_and_link(path: str) -> str:
+    """One nvcc per source, all at once, then one link into `path`."""
+    stem = path[:-len(".so")]
+    tag = f"{os.getpid()}.tmp"
+    objs = [f"{stem}_{os.path.basename(src)[:-len('.cu')]}.{tag}.o" for src in _sources()]
+    cmds = [[_nvcc(), *NVCC_FLAGS, "-c", "-o", obj, src] for obj, src in zip(objs, _sources())]
+    log = _run([(cmd, _start(cmd)) for cmd in cmds])
+    tmp = f"{path}.{tag}"
+    link = [_nvcc(), "-shared", "-o", tmp, *objs]
+    log += _run([(link, _start(link))])
+    os.replace(tmp, path)
+    for obj in objs:
+        os.remove(obj)
+    return log
 
 
 @functools.lru_cache(maxsize=1)
@@ -94,16 +129,9 @@ def library() -> KernelLibrary:
     seconds, log = 0.0, ""
     if not os.path.exists(path):
         os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = f"{path}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *_sources()]
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log = _compile_and_link(path)
         seconds = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed with code {proc.returncode}:\n"
-                               f"{' '.join(cmd)}\n{log}")
-        os.replace(tmp, path)
     lib = ctypes.CDLL(path)
     _declare(lib)
     return KernelLibrary(lib, path, seconds, log)
