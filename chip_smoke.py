@@ -28,6 +28,20 @@ Phases, in order, each printed with its wall seconds:
              per forward (5 cost volume, 4 warp), the float32 card mask
              against the same forward on the CPU for one frame pair, and
              frames/s from CUDA events;
+* eval    -- the evaluation entry point, `evaluate_dataset`, at full width
+             with PWC r=2 (the flagship checkpoint's range) and seeded random
+             weights, batch 8, fed through its batch-iterable seam with
+             DAVIS-shaped raw-mode batches made in numpy (2 categories x 10
+             frames of uint8 480x854 moving textured squares, 0/255 masks:
+             20 samples, 3 batches, the last one wrapped): launch counts per
+             batch (5 cost volume, 4 warp), float32 card against the same
+             evaluation on the CPU (every category's IoU/MAE and the dataset
+             IoU/MAE), bfloat16 card dataset IoU and MAE against float32
+             card, a bfloat16 run with the central crop skipped that these
+             limits must flag, no tile-copy launch, and frames/s of the whole loop (the host pipeline's threads and
+             prefetch, feeding and bookkeeping included; frames come from
+             arrays, not decoded files); and whether cv2 and PIL import on
+             this machine;
 * repro   -- the port of tools/repro_mosaic_dynamic_dma.py (`dynamic_copy.
              repro`), the tile copy's own path: 2 launches, bit-equal;
 * profile -- device time by kernel over three of the path's forwards in
@@ -81,7 +95,7 @@ from unsupervised_detection_tpu_torch.ops.cost_volume import (  # noqa: E402
     cost_volume, cost_volume_plain)
 from unsupervised_detection_tpu_torch.ops.warp import dense_image_warp, warp_plain  # noqa: E402
 
-PHASES = ("card", "build", "kernels", "path", "repro", "profile")
+PHASES = ("card", "build", "kernels", "path", "eval", "repro", "profile")
 BATCH = 8
 # PWC pyramid level -> (H, W, C) at the 384x640 reader resolution
 LEVELS = {6: (6, 10, 196), 5: (12, 20, 128), 4: (24, 40, 96), 3: (48, 80, 64), 2: (96, 160, 32)}
@@ -112,6 +126,16 @@ WARP_TOL = {torch.float32: 1e-6, torch.bfloat16: 2.0**-7}
 # the mask is a softmax probability in [0, 1].
 MASK_TOL = 1e-3
 METRIC_TOL = 1e-3
+# bfloat16 against float32 on the card, phase eval's dataset IoU and MAE.
+# With these random weights the mask is 1 on ~78% of the frame, so the
+# dataset IoU is ~0.05 and moves little: H100 readings 1.9e-5 (IoU) and
+# 1.45e-3 (MAE), and 9.8e-3 / 5.8e-3 with the central crop skipped in
+# bfloat16. The limits sit ~25x (IoU) and 2x (MAE) above the clean reading
+# and below the skipped crop, which the phase runs as a control.
+BF16_IOU_TOL = 5e-4
+BF16_MAE_TOL = 3e-3
+# the eval phase's input: categories x frames of raw DAVIS-sized frames
+EVAL_CATEGORIES, EVAL_FRAMES, EVAL_RAW_HW = 2, 10, (480, 854)
 KERNEL_SOURCES = {
     "cost_volume": ("unsupervised_detection_tpu_torch/csrc/cost_volume.cu",
                     "unsupervised_detection_tpu/ops/pallas/cost_volume_kernel.py:57"),
@@ -462,6 +486,142 @@ def phase_path(report: dict):
     return {"float32": fwd32, "bfloat16": fwd16}, (img1, img2)
 
 
+def eval_batches(seed: int = 3):
+    """A raw-mode `TestPipeline` over frames made in numpy, not files:
+    EVAL_CATEGORIES sequences of EVAL_FRAMES uint8 frames at EVAL_RAW_HW, a
+    textured square moving over a panning textured background, 0/255
+    masks. The pipeline's own pairing (shift 1, the last frame pairs back),
+    ordered prefetch and wrapped last batch; only the decode is replaced."""
+    import numpy as np
+
+    from unsupervised_detection_tpu_torch.data import TestPipeline
+    from unsupervised_detection_tpu_torch.data.base import SequenceDataset
+
+    rs = np.random.RandomState(seed)
+    h, w = EVAL_RAW_HW
+    side = 120
+
+    def texture(shape):
+        t = rs.rand(*shape).astype(np.float32)
+        for axis in (0, 1):            # box blur along H and W
+            t = (t + np.roll(t, 1, axis) + np.roll(t, -1, axis)) / 3.0
+        return (t * 255.0).astype(np.uint8)
+
+    arrays, names = {}, []
+    for c in range(EVAL_CATEGORIES):
+        bg, fg = texture((h, w, 3)), texture((side, side, 3))
+        names.append([f"cat{c}/{f:05d}" for f in range(EVAL_FRAMES)])
+        for f, name in enumerate(names[-1]):
+            y, x = 100 + 6 * f + 20 * c, 150 + 12 * f
+            img = np.roll(bg, (2 * f, 3 * f), axis=(0, 1))
+            img[y:y + side, x:x + side] = fg
+            mask = np.zeros((h, w, 1), np.uint8)
+            mask[y:y + side, x:x + side] = 255
+            arrays[name], arrays[name + ".mask"] = img, mask
+
+    ds = SequenceDataset("DAVIS2016", [f"cat{c}" for c in range(EVAL_CATEGORIES)], names,
+                         [[n + ".mask" for n in seq] for seq in names])
+    return TestPipeline(ds, BATCH, 1, raw_hw=EVAL_RAW_HW, read_rgb=arrays.__getitem__,
+                        read_gray=arrays.__getitem__)
+
+
+def probe_imports() -> dict:
+    """Whether cv2 and PIL import here: the decoders of the JPEG trees."""
+    found = {}
+    for name in ("cv2", "PIL"):
+        try:
+            found[name] = __import__(name).__version__
+        except ImportError as err:
+            found[name] = f"missing ({err})"
+    return found
+
+
+def phase_eval(report: dict) -> None:
+    """evaluate_dataset on the card (float32 and bfloat16) and on the CPU,
+    with the same weights and batches."""
+    from unsupervised_detection_tpu_torch.eval import evaluate_dataset
+    from unsupervised_detection_tpu_torch.ops.dynamic_copy import dynamic_copy
+
+    cfg = Config(batch_size=BATCH, reader_height=384, reader_width=640, img_height=192,
+                 img_width=384, pwc_pyr_lvls=6, pwc_search_range=2)
+    batches = eval_batches()
+    steps = batches.num_steps
+    _, obj = forward_with_sharp_head(cfg, "cuda")
+    states = (obj.generator.state_dict(), obj.pwc.state_dict())
+
+    def evaluator(c, device):
+        ev = Evaluator(c, device=device)
+        ev.load_state_dicts(*states)
+        return ev
+
+    results = {}
+    for dn in ("float32", "bfloat16"):
+        c = cfg.replace(compute_dtype=dn)
+        ev = evaluator(c, "cuda")
+        reset_counts()
+        res = evaluate_dataset(c, ev, batches=batches, verbose=False)
+        torch.cuda.synchronize()
+        counts = (cost_volume.launches, dense_image_warp.launches, dynamic_copy.launches)
+        log(f"eval: {dn} card: {steps} batches, launches cost_volume={counts[0]} "
+            f"warp={counts[1]} dynamic_copy={counts[2]}; frames {res['frames']} dataset IoU "
+            f"{res['dataset_iou']} MAE {res['dataset_mae']} categories {res['category_iou']}")
+        if counts != (5 * steps, 4 * steps, 0):
+            raise AssertionError(f"eval {dn}: expected {5 * steps} cost-volume, {4 * steps} "
+                                 f"warp and 0 tile-copy launches, got {counts}")
+        if res["frames"] != steps * BATCH:
+            raise AssertionError(f"eval {dn}: {res['frames']} frames, expected {steps * BATCH}")
+        results[dn] = res
+        report.setdefault("launches_eval", {})[dn] = dict(
+            zip(("cost_volume", "warp", "dynamic_copy"), counts))
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            evaluate_dataset(c, ev, batches=batches, verbose=False)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        walls.sort()
+        log(f"eval: evaluate_dataset {dn} on the card: {res['frames'] / walls[1]:.2f} frames/s "
+            f"({res['frames']} frames in {walls[1] * 1e3:.3f} ms, median of 3; host "
+            f"pipeline, feeding and bookkeeping included, no decode) [{card_line()}]")
+
+    t0 = time.perf_counter()
+    cpu = evaluate_dataset(cfg, evaluator(cfg, "cpu"), batches=batches, verbose=False)
+    log(f"eval: float32 CPU: frames {cpu['frames']} dataset IoU {cpu['dataset_iou']} "
+        f"MAE {cpu['dataset_mae']} ({time.perf_counter() - t0:.1f} s)")
+    card = results["float32"]
+    if card["frames"] != cpu["frames"] or list(card["category_iou"]) != list(cpu["category_iou"]):
+        raise AssertionError(f"eval: card frames/categories {card['frames']} "
+                             f"{list(card['category_iou'])} != CPU {cpu['frames']} "
+                             f"{list(cpu['category_iou'])}")
+    diffs = {k: float(abs(card[k] - cpu[k])) for k in ("dataset_iou", "dataset_mae")}
+    for kind in ("category_iou", "category_mae"):
+        for cat, v in cpu[kind].items():
+            diffs[f"{kind}[{cat}]"] = abs(card[kind][cat] - v)
+    log(f"eval: float32 card vs CPU abs diffs {diffs} (tol {METRIC_TOL})")
+    if not all(d <= METRIC_TOL for d in diffs.values()):
+        raise AssertionError(f"eval: float32 card differs from the CPU: {diffs}")
+
+    def bf16_diffs(res: dict) -> tuple[float, float]:
+        return (float(abs(res["dataset_iou"] - card["dataset_iou"])),
+                float(abs(res["dataset_mae"] - card["dataset_mae"])))
+
+    d_iou, d_mae = bf16_diffs(results["bfloat16"])
+    log(f"eval: bfloat16 vs float32 card (float32 dataset IoU {card['dataset_iou']}, MAE "
+        f"{card['dataset_mae']}): abs diff IoU {d_iou} (tol {BF16_IOU_TOL}), MAE {d_mae} "
+        f"(tol {BF16_MAE_TOL})")
+    if not (d_iou <= BF16_IOU_TOL and d_mae <= BF16_MAE_TOL):
+        raise AssertionError(f"eval: bfloat16 differs from float32 by IoU {d_iou}, MAE {d_mae}")
+    # control: a bfloat16 fault the limits must see (the central crop skipped)
+    c = cfg.replace(compute_dtype="bfloat16", test_crop=1.0)
+    f_iou, f_mae = bf16_diffs(evaluate_dataset(c, evaluator(c, "cuda"), batches=batches,
+                                               verbose=False))
+    log(f"eval: control, bfloat16 without the central crop vs float32 card: abs diff IoU "
+        f"{f_iou}, MAE {f_mae}")
+    if f_iou <= BF16_IOU_TOL and f_mae <= BF16_MAE_TOL:
+        raise AssertionError("eval: the bfloat16 limits do not flag a skipped central crop")
+    log(f"eval: probe {json.dumps(probe_imports())}")
+
+
 def phase_profile(forwards: dict, images, iters: int = 3, top: int = 12) -> None:
     """Device time by kernel over `iters` of the path's forwards at batch 8
     (torch.profiler), and the device's busy share of the profiled window."""
@@ -540,6 +700,8 @@ def main() -> int:
             phase_kernels(report)
         elif phase == "path":
             forwards, images = phase_path(report)
+        elif phase == "eval":
+            phase_eval(report)
         elif phase == "repro":
             phase_repro(report)
         else:
@@ -552,7 +714,9 @@ def main() -> int:
         k = report[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": report["launches"][name], "max_abs_err": k["max_abs_err"],
+            "launches": report["launches"][name],
+            "launches_eval": report["launches_eval"]["float32"][name],
+            "max_abs_err": k["max_abs_err"],
             "ms": k["ms"], "device_ms": k["device_ms"], "plain_ms": k["plain_ms"],
             "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
             "share_of_bound": k["share_of_bound"], "library_ms": k["library_ms"]})

@@ -1,0 +1,187 @@
+"""Host-side data loading: decode threads and an ordered prefetch queue.
+
+Counterpart of unsupervised_detection_tpu/data/loader.py (the test side:
+`HostLoader`, `TestPipeline`, `host_resize_image`, `host_resize_mask`; the
+train pipeline comes with the training slice). The host only decodes
+compressed frames, except in host mode.
+
+Two feed modes:
+  * raw mode (datasets with a uniform raw frame size, e.g. DAVIS): batches
+    are uint8 at the size the frames decode to; `DeviceFeeder` casts and
+    resizes them on the device;
+  * host mode (FBMS/SegTrack with per-sequence sizes): frames are resized on
+    the host to the reader size with the TF-parity weights of the port's
+    ops/resize.py, the same matrices the device uses.
+
+cv2 is imported where frames are decoded, so the package imports on a host
+without it.
+"""
+
+from __future__ import annotations
+
+import collections
+import concurrent.futures as futures
+import functools
+from typing import Callable, Iterator, List, Optional, Tuple
+
+import numpy as np
+
+from ..ops.resize import bilinear_resize_weights_np, nearest_resize_index_np
+from .base import SequenceDataset, test_pair_index
+
+
+def _imread_rgb(path: str) -> np.ndarray:
+    import cv2
+
+    img = cv2.imread(path, cv2.IMREAD_COLOR)
+    if img is None:
+        raise IOError("Failed to decode {}".format(path))
+    return cv2.cvtColor(img, cv2.COLOR_BGR2RGB)
+
+
+def _imread_gray(path: str) -> np.ndarray:
+    import cv2
+
+    img = cv2.imread(path, cv2.IMREAD_GRAYSCALE)
+    if img is None:
+        raise IOError("Failed to decode {}".format(path))
+    return img[..., None]
+
+
+@functools.lru_cache(maxsize=64)
+def _resize_weights(in_h: int, in_w: int, out_h: int, out_w: int):
+    return (
+        bilinear_resize_weights_np(in_h, out_h),
+        bilinear_resize_weights_np(in_w, out_w),
+    )
+
+
+def host_resize_image(img_u8: np.ndarray, out_hw: Tuple[int, int]) -> np.ndarray:
+    """uint8 HWC -> float32 reader-size in [-0.5, 0.5], TF-parity bilinear
+    (reference preprocess_image, davis2016_data_utils.py:86-91)."""
+    x = img_u8.astype(np.float32) / 255.0 - 0.5
+    wh, ww = _resize_weights(x.shape[0], x.shape[1], *out_hw)
+    return np.einsum("oh,hwc->owc", wh, np.einsum("pw,hwc->hpc", ww, x))
+
+
+def host_resize_mask(mask_u8: np.ndarray, out_hw: Tuple[int, int]) -> np.ndarray:
+    """uint8 HW1 -> float32 reader-size mask in [0, 1], NN resize
+    (reference preprocess_mask, davis2016_data_utils.py:93-99)."""
+    m = mask_u8.astype(np.float32) / 255.0
+    ih = nearest_resize_index_np(m.shape[0], out_hw[0])
+    iw = nearest_resize_index_np(m.shape[1], out_hw[1])
+    return m[ih][:, iw]
+
+
+class HostLoader:
+    """Thread-pooled batch producer with bounded, ordered prefetch."""
+
+    def __init__(self, num_threads: int = 6, prefetch: int = 3):
+        self.num_threads = max(1, num_threads)
+        self.prefetch = prefetch
+
+    def prefetched(self, batch_specs: Iterator, make_batch) -> Iterator:
+        """Map make_batch over batch_specs with `prefetch` batches in flight,
+        yielding results in spec order. The pool lives for one pass: it is
+        shut down when the pass ends or its consumer stops early."""
+        pending = collections.deque()
+        specs = iter(batch_specs)
+        pool = futures.ThreadPoolExecutor(max_workers=self.num_threads)
+        try:
+            for spec in specs:
+                pending.append(pool.submit(make_batch, spec))
+                if len(pending) == self.prefetch:
+                    break
+            while pending:
+                done = pending.popleft()
+                spec = next(specs, None)
+                if spec is not None:
+                    pending.append(pool.submit(make_batch, spec))
+                yield done.result()
+        finally:
+            pool.shutdown(wait=True, cancel_futures=True)
+
+
+class TestPipeline:
+    __test__ = False  # not a pytest class
+
+    """Sequential (cyclically wrapped) evaluation stream with ground truth.
+
+    Matches reference test_inputs semantics: fixed |t_len| shift with
+    boundary reversal, every frame exactly once per cycle, final batch
+    filled by wrap-around (the reference's repeat(None) + ceil(n/b) steps,
+    test_generator.py:62-75). Yields images, GT mask, category and file name
+    per sample.
+
+    `read_rgb` / `read_gray` decode a frame / mask name to uint8 HWC / HW1
+    (default: cv2 from files); a caller that holds frames in memory passes
+    its own lookups.
+    """
+
+    def __init__(self, dataset: Optional[SequenceDataset], batch_size: int, t_len: int,
+                 reader_hw: Tuple[int, int] = (384, 640),
+                 raw_hw: Optional[Tuple[int, int]] = None,
+                 num_threads: int = 1,
+                 explicit_tuples: Optional[List] = None,
+                 read_rgb: Callable[[str], np.ndarray] = _imread_rgb,
+                 read_gray: Callable[[str], np.ndarray] = _imread_gray):
+        if explicit_tuples is not None:
+            # FBMS-style (img1, img2, ann, category, samples_per_cat) tuples.
+            self.tuples = explicit_tuples
+            self.num_samples = len(explicit_tuples)
+        else:
+            self.index = test_pair_index(dataset, t_len)
+            self.t_len = abs(t_len)
+            self.tuples = None
+            self.num_samples = len(self.index)
+        self.batch_size = batch_size
+        self.reader_hw = reader_hw
+        self.raw_hw = raw_hw
+        self.read_rgb, self.read_gray = read_rgb, read_gray
+        self.loader = HostLoader(num_threads, prefetch=3)
+
+    @property
+    def num_steps(self) -> int:
+        return int(np.ceil(self.num_samples / float(self.batch_size)))
+
+    def _sample(self, i: int):
+        if self.tuples is not None:
+            f1, f2, ann, cat, _ = self.tuples[i]
+            return f1, f2, ann, cat
+        n1 = self.index.numbers[i]
+        n2 = n1 + self.t_len * self.index.directions[i]
+        return (
+            self.index.images[n1],
+            self.index.images[n2],
+            self.index.annotations[n1],
+            self.index.categories[n1],
+        )
+
+    def _make_batch(self, rows):
+        f1s, f2s, anns, cats = zip(*[self._sample(i) for i in rows])
+        rgb, gray = self.read_rgb, self.read_gray
+        if self.raw_hw is not None:
+            img1 = np.stack([rgb(f) for f in f1s])
+            img2 = np.stack([rgb(f) for f in f2s])
+            gt = np.stack([gray(a) for a in anns])
+            return {
+                "img1_raw": img1, "img2_raw": img2, "gt_raw": gt,
+                "category": list(cats), "fname": list(f1s),
+            }
+        img1 = np.stack([host_resize_image(rgb(f), self.reader_hw) for f in f1s])
+        img2 = np.stack([host_resize_image(rgb(f), self.reader_hw) for f in f2s])
+        gt = np.stack([host_resize_mask(gray(a), self.reader_hw) for a in anns])
+        return {
+            "img1": img1, "img2": img2, "gt": gt,
+            "category": list(cats), "fname": list(f1s),
+        }
+
+    def _spec_stream(self):
+        order = np.arange(self.num_samples)
+        for step in range(self.num_steps):
+            start = step * self.batch_size
+            rows = [order[(start + j) % self.num_samples] for j in range(self.batch_size)]
+            yield rows
+
+    def __iter__(self):
+        return self.loader.prefetched(self._spec_stream(), self._make_batch)

@@ -1,5 +1,6 @@
-"""Evaluation of the port (so far: `Evaluator.infer_metrics`)."""
+"""Evaluation of the port: `Evaluator` and the metrics-only
+`evaluate_dataset`."""
 
-from .evaluator import Evaluator
+from .evaluator import Evaluator, evaluate_dataset
 
-__all__ = ["Evaluator"]
+__all__ = ["Evaluator", "evaluate_dataset"]

@@ -1,0 +1,35 @@
+"""Raw evaluation CLI of the port, counterpart of the JAX package's
+test_generator.py with the same flag surface and summary lines:
+
+    python -m unsupervised_detection_tpu_torch.test_generator \\
+        --root_dir=DAVIS --ckpt_file=model.npz --pwc_search_range=2 ...
+
+`--ckpt_file` is an evaluation checkpoint written by
+tools/export_torch_checkpoint.py. Prints per-category and dataset IoU/MAE
+(metrics-only path; `--generate_visualization` with `--test_save_dir` needs
+the recover net, which the port does not have yet, and raises).
+"""
+
+from __future__ import annotations
+
+import sys
+
+from .config import parse_flags
+from .eval import Evaluator, evaluate_dataset
+from .train.checkpoint import load_eval_checkpoint
+
+
+def main(argv, device=None) -> dict:
+    """Run the CLI on `argv` (the flags, without the program name) on
+    `device`: None is the card, and raises without one. Returns the
+    metrics dict of `evaluate_dataset`."""
+    config = parse_flags(argv)
+    evaluator = Evaluator(config, device)
+    evaluator.load_state_dicts(*load_eval_checkpoint(config.ckpt_file, config.pwc_search_range))
+    print("Resume model from checkpoint {}".format(config.ckpt_file))
+    return evaluate_dataset(config, evaluator, save_dir=config.test_save_dir or None,
+                            generate_visualization=config.generate_visualization)
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])
