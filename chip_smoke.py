@@ -15,7 +15,8 @@ Phases, in order, each printed with its wall seconds:
              and chunk, odd C, batch 1), r=4 and r=2; the warp at L5..L2 and
              ragged shapes (C=1, C % 8 != 0) with flows that drive taps past
              every clamp; the tile copy on both axes at offset 2; in float32
-             and bfloat16, with the stated tolerance. Then each kernel's time
+             and bfloat16, with the stated tolerance; both again at the train
+             phase's level shapes (batch 16, r=2). Then each kernel's time
              at batch 8: CUDA events over 20 back-to-back calls (`ms`, host
              overhead included) and the kernel's own device time per launch
              from torch.profiler over 20 launches (`device_ms`), beside its
@@ -42,6 +43,25 @@ Phases, in order, each printed with its wall seconds:
              prefetch, feeding and bookkeeping included; frames come from
              arrays, not decoded files); and whether cv2 and PIL import on
              this machine;
+* train   -- the two-player training game at full width (reader 384x640,
+             working 192x384, PWC 6 levels r=2, generator cnum 32, recover
+             f=0.25) with seeded random weights: one `generator_step` and one
+             `recover_step` at batch 2 in float32 (TF32 off) on the card and
+             on the CPU from the same weights and augmentation draws (the 8
+             losses, the stepped net's gradients and, where those fix them,
+             its deltas within the stated limits, with the share of elements
+             whose deltas are held; the other net and its Adam count
+             unchanged, the shared Adam step advanced); 2 cycles (8
+             sub-steps) at batch 16 in float32 and bfloat16 with 5
+             cost-volume, 4 warp and 0 tile-copy launches per sub-step,
+             finite losses, ms per generator and per recover step (CUDA
+             events), samples/s, the device's busy share and the kernels'
+             device time over one cycle (torch.profiler), and each kernel
+             against its plain version on the inputs PWC gives it in one
+             more sub-step; then the train CLI through `main(argv)`
+             on a DAVIS-layout tree of JPEGs written with cv2 (one epoch of 4
+             sub-steps, `model.best` and `model-1`), and `test_generator` on
+             that `model.best`;
 * repro   -- the port of tools/repro_mosaic_dynamic_dma.py (`dynamic_copy.
              repro`), the tile copy's own path: 2 launches, bit-equal;
 * profile -- device time by kernel over three of the path's forwards in
@@ -64,6 +84,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import subprocess
 import sys
@@ -95,7 +116,7 @@ from unsupervised_detection_tpu_torch.ops.cost_volume import (  # noqa: E402
     cost_volume, cost_volume_plain)
 from unsupervised_detection_tpu_torch.ops.warp import dense_image_warp, warp_plain  # noqa: E402
 
-PHASES = ("card", "build", "kernels", "path", "eval", "repro", "profile")
+PHASES = ("card", "build", "kernels", "path", "eval", "train", "repro", "profile")
 BATCH = 8
 # PWC pyramid level -> (H, W, C) at the 384x640 reader resolution
 LEVELS = {6: (6, 10, 196), 5: (12, 20, 128), 4: (24, 40, 96), 3: (48, 80, 64), 2: (96, 160, 32)}
@@ -136,6 +157,33 @@ BF16_IOU_TOL = 5e-4
 BF16_MAE_TOL = 3e-3
 # the eval phase's input: categories x frames of raw DAVIS-sized frames
 EVAL_CATEGORIES, EVAL_FRAMES, EVAL_RAW_HW = 2, 10, (480, 854)
+# the train phase: full width at r=2 (the committed game arm's range);
+# batch 16 is Config.batch_size's default
+TRAIN_SIZES = dict(reader_height=384, reader_width=640, img_height=192, img_width=384,
+                   pwc_pyr_lvls=6, pwc_search_range=2)
+TRAIN_BATCH, TRAIN_PARITY_BATCH = 16, 2
+# Card vs CPU, one step of each kind at batch 2, float32 with TF32 off:
+# * the 8 losses within 1e-4 relative (sums over B*H*W of float32 terms;
+#   cuDNN and oneDNN convolutions sum in other orders);
+# * every element of the stepped net's applied gradients within 1e-4 of
+#   the net's largest |gradient| (the same sums, back-propagated: their
+#   rounding follows the backward pass's magnitudes, not one tensor's
+#   result, which may be small). H100 readings: 1.33e-5 (generator step,
+#   conv1.weight) and 3.08e-5 (recover step, flow1.weight) of the net's
+#   largest, up to 2.4e-4 of a tensor's own largest (deconv5.bias);
+# * the deltas, where the gradient limit fixes them. A net's first Adam
+#   step moves an element by C * g / (|g| + e), e = eps / sqrt(1 - b2),
+#   with C the same on both sides; for |g| > d, gradients d apart move it
+#   by at most C * e * d / (|g| - d + e)**2 apart. So, with d the gradient
+#   limit and k = 5% of the largest delta over C, every element with
+#   |g_cpu| >= d + max(0, sqrt(e * d / k) - e) moves within 5% of the
+#   tensor's largest |delta| on both; below that floor only the gradient
+#   limit holds it.
+TRAIN_LOSS_RTOL, TRAIN_LOSS_ATOL = 1e-4, 1e-6
+TRAIN_GRAD_REL, TRAIN_DELTA_REL = 1e-4, 0.05
+LOSS_KEYS = ("generator", "recover", "red_rate", "red_rate_compl", "reconstruction_loss",
+             "reconstruction_compl_loss", "denominator_red_rate",
+             "denominator_red_rate_compl")
 KERNEL_SOURCES = {
     "cost_volume": ("unsupervised_detection_tpu_torch/csrc/cost_volume.cu",
                     "unsupervised_detection_tpu/ops/pallas/cost_volume_kernel.py:57"),
@@ -257,16 +305,22 @@ def check_kernels() -> dict:
     gen = torch.Generator(device="cuda").manual_seed(0)
     err = {"cost_volume": 0.0, "warp": 0.0, "dynamic_copy": 0.0}
     level_shapes = [(f"L{lvl}", (BATCH, h, w, c)) for lvl, (h, w, c) in LEVELS.items()]
+    # the train phase's levels: batch 16 at its search range only
+    train_shapes = [(f"train L{lvl}", (TRAIN_BATCH, h, w, c))
+                    for lvl, (h, w, c) in LEVELS.items()]
     for dtype in DTYPES:
         dn = dtype_name(dtype)
-        for tag, shape in level_shapes + [("ragged", s) for s in RAGGED_COST]:
+        for tag, shape in (level_shapes + train_shapes
+                           + [("ragged", s) for s in RAGGED_COST]):
             c1, wp = randn(gen, shape, dtype), randn(gen, shape, dtype)
-            for r in (4, 2):
+            radii = (TRAIN_SIZES["pwc_search_range"],) if tag.startswith("train") else (4, 2)
+            for r in radii:
                 want = cost_volume_plain(c1, wp, r)
                 err["cost_volume"] = max(err["cost_volume"], check(
                     f"cost_volume {tag} r={r} {dn} {shape}", cost_volume(c1, wp, r), want,
                     tolerance("cost_volume", dtype, want)))
-        for tag, shape in level_shapes[1:] + [("ragged", s) for s in RAGGED_WARP]:
+        for tag, shape in (level_shapes[1:] + train_shapes[1:]
+                           + [("ragged", s) for s in RAGGED_WARP]):
             image = randn(gen, shape, dtype)
             flow = clamp_flow(gen, *shape[:3], dtype)
             want = warp_plain(image, flow)
@@ -622,28 +676,393 @@ def phase_eval(report: dict) -> None:
     log(f"eval: probe {json.dumps(probe_imports())}")
 
 
-def phase_profile(forwards: dict, images, iters: int = 3, top: int = 12) -> None:
-    """Device time by kernel over `iters` of the path's forwards at batch 8
-    (torch.profiler), and the device's busy share of the profiled window."""
+def train_weights(seed: int = 0) -> dict:
+    """Seeded random weights of the three nets in the flax layout (numpy),
+    at full width; the generator's head x 30 so that the mask spans [0, 1]
+    and its gradients do not vanish."""
+    from unsupervised_detection_tpu_torch.convert import random_jax_params, random_recover_params
+    from unsupervised_detection_tpu_torch.models import GeneratorNet, PWCNet, RecoverNet
+
+    gen_p, gen_s, pwc_p = random_jax_params(
+        GeneratorNet(), PWCNet(search_range=TRAIN_SIZES["pwc_search_range"]), seed)
+    gen_p["conv17"]["conv"]["kernel"] = gen_p["conv17"]["conv"]["kernel"] * 30.0
+    return {"gen_params": gen_p, "gen_stats": gen_s, "pwc_params": pwc_p,
+            "rec_params": random_recover_params(RecoverNet(), seed + 1)}
+
+
+def make_learner(cfg: Config, device: str, weights: dict):
+    """An AdversarialLearner on `device` and its initial state, the nets
+    loaded from `weights` through convert.py."""
+    from unsupervised_detection_tpu_torch.convert import from_jax_params, recover_state_dict
+    from unsupervised_detection_tpu_torch.train.learner import AdversarialLearner
+
+    learner = AdversarialLearner(cfg, device=device)
+    learner.objective.load_state_dicts(*from_jax_params(
+        weights["gen_params"], weights["gen_stats"], weights["pwc_params"]))
+    learner.objective.recover.load_state_dict(recover_state_dict(weights["rec_params"]))
+    return learner, learner.init_state()
+
+
+def net_params(state) -> dict:
+    """CPU copies of both nets' parameters: {"gen": {...}, "rec": {...}}."""
+    return {net: {k: v.detach().cpu().clone() for k, v in m.named_parameters()}
+            for net, m in (("gen", state.generator), ("rec", state.recover))}
+
+
+def train_parity(weights: dict) -> dict:
+    return hold_train_parity(*train_parity_runs(weights))
+
+
+def train_parity_runs(weights: dict):
+    """One generator_step and one recover_step at batch 2, float32, on the
+    card and on the CPU from the same weights and draws (the state's
+    generator lives on the CPU and is seeded from Config.seed on both).
+    Returns ({device: [step record]}, e = eps / sqrt(1 - b2) of the Adam)."""
+    cfg = Config(batch_size=TRAIN_PARITY_BATCH, **TRAIN_SIZES)
+    img1, img2 = random_images(cfg, seed=5)
+    runs = {}
+    for device in ("cuda", "cpu"):
+        learner, state = make_learner(cfg, device, weights)
+        steps = []
+        for name in ("generator_step", "recover_step"):
+            before, counts = net_params(state), (state.gen_opt.count, state.rec_opt.count)
+            t = state.shared_adam_t
+            state, losses, grads = getattr(learner, name)(state, img1.to(learner.device),
+                                                          img2.to(learner.device))
+            net = state.generator if name == "generator_step" else state.recover
+            steps.append({"name": name, "losses": {k: float(v) for k, v in losses.items()},
+                          "grads": {k: g.detach().cpu() for (k, _), g in
+                                    zip(net.named_parameters(), grads)},
+                          "before": before, "after": net_params(state), "counts": counts,
+                          "counts_after": (state.gen_opt.count, state.rec_opt.count),
+                          "t": t, "t_after": state.shared_adam_t})
+        runs[device] = steps
+    _, _, b2, eps = learner.adam_hparams
+    return runs, eps / math.sqrt(1.0 - b2)
+
+
+def hold_train_parity(runs: dict, e: float) -> dict:
+    """train_parity_runs' card against its CPU, to the TRAIN_* limits."""
+    worst = {"loss_rel": 0.0, "grad_gap": 0.0, "grad_gap_of": None, "grad_gap_own": 0.0,
+             "grad_gap_own_of": None, "delta_off": 0.0, "held_share": 1.0,
+             "held_share_of": None, "not_held_off": 0}
+    for card, cpu in zip(runs["cuda"], runs["cpu"]):
+        name = card["name"]
+        stepped, kept = ("gen", "rec") if name == "generator_step" else ("rec", "gen")
+        for k in LOSS_KEYS:
+            a, b = card["losses"][k], cpu["losses"][k]
+            if not (math.isfinite(a) and abs(a - b) <= TRAIN_LOSS_RTOL * abs(b) + TRAIN_LOSS_ATOL):
+                raise AssertionError(f"train: {name} loss {k}: card {a} CPU {b}")
+            worst["loss_rel"] = max(worst["loss_rel"], abs(a - b) / max(abs(b), 1e-30))
+        for run in (card, cpu):
+            if not all(torch.equal(run["before"][kept][k], v)
+                       for k, v in run["after"][kept].items()):
+                raise AssertionError(f"train: {name} changed the {kept} net")
+            i = 0 if stepped == "gen" else 1
+            want = list(run["counts"])
+            want[i] += 1
+            if list(run["counts_after"]) != want or run["t_after"] != run["t"] + 1:
+                raise AssertionError(f"train: {name} Adam counts {run['counts']} -> "
+                                     f"{run['counts_after']}, shared t {run['t']} -> "
+                                     f"{run['t_after']}")
+        held_total = n_total = 0
+        g_net = max(g.abs().max().item() for g in cpu["grads"].values())
+        d = TRAIN_GRAD_REL * g_net
+        for k, v in card["after"][stepped].items():
+            g_card, g_cpu = card["grads"][k].flatten(), cpu["grads"][k].flatten()
+            g_max = g_cpu.abs().max().item()
+            gap = (g_card - g_cpu).abs().max().item()
+            for key, rel in (("grad_gap", gap / g_net), ("grad_gap_own", gap / max(g_max, 1e-30))):
+                if rel > worst[key]:
+                    worst[key], worst[key + "_of"] = rel, f"{stepped}.{k}"
+            if not gap <= d:
+                raise AssertionError(f"train: {name} {stepped}.{k}: gradients differ by {gap}, "
+                                     f"{gap / g_net} of the net's largest {g_net} (tol "
+                                     f"{TRAIN_GRAD_REL})")
+            d_card = (v - card["before"][stepped][k]).flatten()
+            d_cpu = (cpu["after"][stepped][k] - cpu["before"][stepped][k]).flatten()
+            scale = d_cpu.abs().max().item()
+            if scale == 0.0:
+                raise AssertionError(f"train: {name} {stepped}.{k} did not move")
+            diff = (d_card - d_cpu).abs() / scale
+            floor = d + max(0.0, math.sqrt(e * d * (g_max + e) / (TRAIN_DELTA_REL * g_max)) - e)
+            held = g_cpu.abs() >= floor
+            off = held & (diff > TRAIN_DELTA_REL)
+            not_held_off = ~held & (diff > TRAIN_DELTA_REL)
+            share = held.float().mean().item()
+            held_total, n_total = held_total + int(held.sum()), n_total + held.numel()
+            if share < worst["held_share"]:
+                worst["held_share"], worst["held_share_of"] = share, f"{stepped}.{k}"
+            if held.any():
+                worst["delta_off"] = max(worst["delta_off"], diff[held].max().item())
+            worst["not_held_off"] += int(not_held_off.sum())
+            for i in (off | not_held_off).nonzero().flatten()[:4].tolist():
+                log(f"train: {name} {stepped}.{k}[{i}] off{'' if off[i] else ' (not held)'}: "
+                    f"delta card {d_card[i].item()} CPU {d_cpu[i].item()}; gradient card "
+                    f"{g_card[i].item()} CPU {g_cpu[i].item()} (largest |gradient| {g_max}, "
+                    f"floor {floor})")
+            if off.any():
+                raise AssertionError(f"train: {name} {stepped}.{k}: {int(off.sum())} deltas "
+                                     f"differ by > {TRAIN_DELTA_REL:.0%} of {scale}")
+        log(f"train: {name} card vs CPU, batch {TRAIN_PARITY_BATCH} float32: losses "
+            f"{json.dumps(card['losses'])}; counts {card['counts']} -> {card['counts_after']}, "
+            f"shared t {card['t']} -> {card['t_after']}; {kept} net bit-unchanged; deltas held "
+            f"for {held_total} of {n_total} elements ({100.0 * held_total / n_total:.3f}%)")
+    log(f"train: card vs CPU worst loss rel diff {worst['loss_rel']} (tol {TRAIN_LOSS_RTOL}); "
+        f"worst gradient gap over the net's largest gradient {worst['grad_gap']} "
+        f"({worst['grad_gap_of']}; tol {TRAIN_GRAD_REL}), over its tensor's largest "
+        f"{worst['grad_gap_own']} ({worst['grad_gap_own_of']}); worst delta diff over the largest delta {worst['delta_off']} (tol "
+        f"{TRAIN_DELTA_REL}) where the gradient limit fixes the delta; smallest share held "
+        f"{worst['held_share']} ({worst['held_share_of']}); {worst['not_held_off']} elements "
+        f"under the floor off by more")
+    return worst
+
+
+def profile_window(fn, iters: int):
+    """(wall us, device busy us, {kernel name: [us, count]}) of `iters`
+    calls of fn() under torch.profiler."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    per_kernel: dict[str, list] = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:    # kernels and copies on the card
+            acc = per_kernel.setdefault(e.name, [0.0, 0])
+            acc[0] += e.time_range.elapsed_us()
+            acc[1] += 1
+    return wall_us, sum(us for us, _ in per_kernel.values()), per_kernel
+
+
+def train_throughput(weights: dict, report: dict) -> dict:
+    """2 cycles at batch 16 per dtype: launch counts, finite losses, ms per
+    step, samples/s; then one profiled cycle."""
+    from unsupervised_detection_tpu_torch.ops.dynamic_copy import dynamic_copy
+
+    cfg = Config(batch_size=TRAIN_BATCH, **TRAIN_SIZES)
+    img1, img2 = random_images(cfg, seed=6, device="cuda")
+    out = {}
+    for dn in ("float32", "bfloat16"):
+        learner, state = make_learner(cfg.replace(compute_dtype=dn), "cuda", weights)
+        sub_step = 0
+
+        def one(record=None):
+            nonlocal state, sub_step
+            sub_step += 1
+            fn = learner.select_step(sub_step)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            state, losses, _ = fn(state, img1, img2)
+            end.record()
+            if sub_step % 4 == 0:
+                state = learner.incr_step(state)
+            if record is not None:
+                record.append((fn == learner.recover_step, start, end, losses))
+
+        for _ in range(4):                      # warm-up cycle
+            one()
+        torch.cuda.synchronize()
+        reset_counts()
+        record: list = []
+        t0 = time.perf_counter()
+        for _ in range(8):
+            one(record)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        counts = (cost_volume.launches, dense_image_warp.launches, dynamic_copy.launches)
+        log(f"train: {dn} batch {TRAIN_BATCH}, 8 sub-steps: launches cost_volume={counts[0]} "
+            f"warp={counts[1]} dynamic_copy={counts[2]}")
+        if counts != (40, 32, 0):
+            raise AssertionError(f"train {dn}: expected 40 cost-volume, 32 warp and 0 "
+                                 f"tile-copy launches in 8 sub-steps, got {counts}")
+        if dn == "float32":
+            report["launches_train"] = dict(zip(("cost_volume", "warp", "dynamic_copy"),
+                                                counts))
+        for is_rec, _, _, losses in record:
+            bad = [k for k, v in losses.items() if not math.isfinite(float(v))]
+            if bad:
+                raise AssertionError(f"train {dn}: non-finite losses {bad}")
+        ms = {"generator": [], "recover": []}
+        for is_rec, start, end, _ in record:
+            ms["recover" if is_rec else "generator"].append(start.elapsed_time(end))
+        row = {"ms_generator_step": sum(ms["generator"]) / len(ms["generator"]),
+               "ms_recover_step": sum(ms["recover"]) / len(ms["recover"]),
+               "samples_per_s": TRAIN_BATCH * 8 * 1e3 / wall_ms,
+               "last_losses": {k: float(v) for k, v in record[-1][3].items()}}
+        wall_us, busy_us, per_kernel = profile_window(one, 4)
+        row["busy_share"] = busy_us / wall_us
+        log(f"train: {dn} batch {TRAIN_BATCH}: generator step {row['ms_generator_step']:.3f} ms, "
+            f"recover step {row['ms_recover_step']:.3f} ms (CUDA events, mean of 6 / 2 after a "
+            f"warm-up cycle), {row['samples_per_s']:.2f} samples/s (host clock over 8 "
+            f"sub-steps), device busy {busy_us / 1e3:.3f} of {wall_us / 1e3:.3f} ms over one "
+            f"profiled cycle ({100.0 * row['busy_share']:.1f}%) [{card_line()}]")
+        top = sorted(((us, n, name) for name, (us, n) in per_kernel.items()), reverse=True)[:8]
+        for us, n, name in top:
+            log(f"train: {dn} profile {100.0 * us / busy_us:5.1f}% {us / 1e3 / 4:8.3f} "
+                f"ms/sub-step {n // 4:4d}/sub-step {name[:80]}")
+        row["kernel_device_ms_per_sub_step"] = {
+            name: sum(us for kn, (us, _) in per_kernel.items() if KERNEL_SYMBOLS[name] in kn)
+            / 1e3 / 4 for name in ("cost_volume", "warp")}
+        log(f"train: {dn} kernels' device ms per sub-step "
+            f"{json.dumps(row['kernel_device_ms_per_sub_step'])}")
+        log(f"train: {dn} last losses {json.dumps(row['last_losses'])}")
+        for name, err in check_step_kernels(one, dn).items():
+            report[name]["max_abs_err"] = max(report[name]["max_abs_err"], err)
+        out[dn] = row
+    return out
+
+
+def check_step_kernels(step, dn: str) -> dict:
+    """Each kernel's wrapper against its plain version on the very inputs
+    PWC hands it in one training sub-step (`step()`), with the limits of
+    check_kernels; returns max abs err by kernel."""
+    from unsupervised_detection_tpu_torch.models import pwcnet
+
+    calls = []
+    saved = pwcnet.cost_volume, pwcnet.dense_image_warp
+
+    def recorder(name, fn):
+        def call(*args):
+            calls.append((name, args))
+            return fn(*args)
+        return call
+
+    pwcnet.cost_volume = recorder("cost_volume", saved[0])
+    pwcnet.dense_image_warp = recorder("warp", saved[1])
+    try:
+        step()
+    finally:
+        pwcnet.cost_volume, pwcnet.dense_image_warp = saved
+    if [n for n, _ in calls].count("cost_volume") != 5 or len(calls) != 9:
+        raise AssertionError(f"train {dn}: recorded {[n for n, _ in calls]} in one sub-step")
+    err = {"cost_volume": 0.0, "warp": 0.0}
+    for name, args in calls:
+        kernel, plain = ((cost_volume, cost_volume_plain) if name == "cost_volume"
+                         else (dense_image_warp, warp_plain))
+        want = plain(*args)
+        shape = tuple(args[0].shape)
+        err[name] = max(err[name], check(
+            f"{name} train sub-step {dtype_name(args[0].dtype)} {shape}", kernel(*args), want,
+            tolerance(name, args[0].dtype, want)))
+    return err
+
+
+def write_davis_tree(root: str, sequences: int = 2, frames: int = 10,
+                     hw: tuple[int, int] = EVAL_RAW_HW, seed: int = 7) -> str:
+    """A DAVIS2016-layout tree of JPEG frames and PNG masks written with
+    cv2: a textured square moving over a panning textured background;
+    sequence 0 in `train`, the others in `val`, all in `trainval`."""
+    import cv2
+    import numpy as np
+
+    rs = np.random.RandomState(seed)
+    h, w = hw
+    side = 120
+    lines: dict[str, list] = {"train": [], "val": [], "trainval": []}
+    for si in range(sequences):
+        seq = f"seq{si}"
+        for sub in ("JPEGImages", "Annotations"):
+            os.makedirs(os.path.join(root, sub, "480p", seq), exist_ok=True)
+        bg = cv2.GaussianBlur(rs.randint(0, 255, (h, w, 3), dtype=np.uint8), (7, 7), 2)
+        fg = cv2.GaussianBlur(rs.randint(0, 255, (side, side, 3), dtype=np.uint8), (5, 5), 1)
+        for f in range(frames):
+            y, x = 100 + 6 * f + 20 * si, 150 + 12 * f
+            img = np.roll(bg, (2 * f, 3 * f), axis=(0, 1))
+            img[y:y + side, x:x + side] = fg
+            mask = np.zeros((h, w), np.uint8)
+            mask[y:y + side, x:x + side] = 255
+            rel_img = f"/JPEGImages/480p/{seq}/{f:05d}.jpg"
+            rel_ann = f"/Annotations/480p/{seq}/{f:05d}.png"
+            cv2.imwrite(root + rel_img, img)
+            cv2.imwrite(root + rel_ann, mask)
+            for part in ("train" if si == 0 else "val", "trainval"):
+                lines[part].append(f"{rel_img} {rel_ann}")
+    os.makedirs(os.path.join(root, "ImageSets", "480p"), exist_ok=True)
+    for part, ls in lines.items():
+        with open(os.path.join(root, "ImageSets", "480p", part + ".txt"), "w") as fh:
+            fh.write("\n".join(ls) + "\n")
+    return root
+
+
+def run_captured(fn, *args, **kw):
+    """fn's result and what it printed (echoed to the log)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        result = fn(*args, **kw)
+    for line in buf.getvalue().splitlines():
+        if not line.startswith((" ", "{")):     # skip the pretty-printed config
+            log("train: cli: " + line)
+    return result, buf.getvalue()
+
+
+def train_cli(report: dict) -> None:
+    """The train CLI through main(argv) on a JPEG tree, on the card, then
+    test_generator on its model.best."""
+    import importlib
+    import tempfile
+
+    from unsupervised_detection_tpu_torch import test_generator
+    from unsupervised_detection_tpu_torch.ops.dynamic_copy import dynamic_copy
+
+    cli = importlib.import_module("unsupervised_detection_tpu_torch.train.__main__")
+    with tempfile.TemporaryDirectory() as tmp:
+        root = write_davis_tree(os.path.join(tmp, "davis"))
+        ckpt_dir = os.path.join(tmp, "ckpt")
+        # 2 sequences x 10 frames: 32 training pairs (2 batches of 16 per
+        # permutation); an epoch of 4 batches is 4 sub-steps (gen, gen, gen,
+        # rec); the val partition (sequence 1) is one wrapped batch
+        flags = [f"--root_dir={root}", "--pwc_search_range=2",
+                 f"--batch_size={TRAIN_BATCH}", "--num_threads=4"]
+        val_batches = -(-10 // TRAIN_BATCH)
+        batches = 4 + val_batches
+        reset_counts()
+        t0 = time.perf_counter()
+        state, text = run_captured(cli.main, flags + [
+            f"--checkpoint_dir={ckpt_dir}", "--allow_random_flow",
+            f"--num_samples_train={4 * TRAIN_BATCH}", "--max_epochs=1", "--summary_freq=1",
+            "--save_freq=1"])
+        counts = (cost_volume.launches, dense_image_warp.launches, dynamic_copy.launches)
+        saved = sorted(os.listdir(ckpt_dir))
+        log(f"train: cli: {time.perf_counter() - t0:.2f} s, saves {saved}, launches "
+            f"cost_volume={counts[0]} warp={counts[1]} dynamic_copy={counts[2]}, Adam counts "
+            f"{state.gen_opt.count}/{state.rec_opt.count}")
+        if ("Training completed successfully" not in text or saved != ["model-1", "model.best"]
+                or (state.gen_opt.count, state.rec_opt.count) != (3, 1)):
+            raise AssertionError(f"train CLI: saves {saved}, output ends {text[-300:]!r}")
+        if counts != (5 * batches, 4 * batches, 0):
+            raise AssertionError(f"train CLI: launches {counts} in {batches} batches")
+        res, text = run_captured(test_generator.main, flags + [
+            f"--ckpt_file={os.path.join(ckpt_dir, 'model.best')}"])
+        if "The Average over the dataset: IoU is" not in text or res["frames"] != TRAIN_BATCH * val_batches:
+            raise AssertionError(f"test_generator on model.best: {text[-300:]!r}")
+    report["train_cli"] = {"saves": saved, "dataset_iou": res["dataset_iou"]}
+
+
+def phase_train(report: dict) -> None:
+    weights = train_weights()
+    t0 = time.perf_counter()
+    report["train_parity"] = train_parity(weights)
+    log(f"train: parity {time.perf_counter() - t0:.1f} s")
+    report["train"] = train_throughput(weights, report)
+    train_cli(report)
+
+
+def phase_profile(forwards: dict, images, iters: int = 3, top: int = 12) -> None:
+    """Device time by kernel over `iters` of the path's forwards at batch 8
+    (torch.profiler), and the device's busy share of the profiled window."""
     img1, img2 = images
     for dtype, fwd in forwards.items():
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(iters):
-                fwd(img1, img2)
-            torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6
-        per_kernel: dict[str, list] = {}
-        for e in prof.events():
-            if e.device_type == DeviceType.CUDA:    # kernels and copies on the card
-                acc = per_kernel.setdefault(e.name, [0.0, 0])
-                acc[0] += e.time_range.elapsed_us()
-                acc[1] += 1
+        wall_us, busy, per_kernel = profile_window(lambda: fwd(img1, img2), iters)
         rows = sorted(((us, n, name) for name, (us, n) in per_kernel.items()), reverse=True)
-        busy = sum(r[0] for r in rows)
         log(f"profile: {dtype} batch {BATCH}: {iters} forwards, wall {wall_us / 1e3:.3f} ms, "
             f"device busy {busy / 1e3:.3f} ms ({100.0 * busy / wall_us:.1f}% of the window)")
         for us, count, name in rows[:top]:
@@ -702,6 +1121,8 @@ def main() -> int:
             forwards, images = phase_path(report)
         elif phase == "eval":
             phase_eval(report)
+        elif phase == "train":
+            phase_train(report)
         elif phase == "repro":
             phase_repro(report)
         else:
@@ -716,6 +1137,7 @@ def main() -> int:
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": report["launches"][name],
             "launches_eval": report["launches_eval"]["float32"][name],
+            "launches_train": report["launches_train"][name],
             "max_abs_err": k["max_abs_err"],
             "ms": k["ms"], "device_ms": k["device_ms"], "plain_ms": k["plain_ms"],
             "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],

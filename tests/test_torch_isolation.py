@@ -1,8 +1,10 @@
 """The PyTorch port stands alone: it imports neither JAX nor the JAX
-package, its entry points default to the card and raise without one, and
-its kernel wrappers take the plain version only for CPU tensors."""
+package, its entry points (the train CLI among them) default to the card
+and raise without one, and its kernel wrappers take the plain version only
+for CPU tensors."""
 
 import dataclasses
+import importlib
 import os
 import re
 import subprocess
@@ -17,6 +19,7 @@ from unsupervised_detection_tpu_torch.benchlib import build_forward
 from unsupervised_detection_tpu_torch.eval import Evaluator
 from unsupervised_detection_tpu_torch.ops.cost_volume import cost_volume
 from unsupervised_detection_tpu_torch.ops.warp import dense_image_warp
+from unsupervised_detection_tpu_torch.train.learner import AdversarialLearner
 from unsupervised_detection_tpu_torch.train.objective import AdversarialObjective
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -52,7 +55,7 @@ print(len(names))
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip().splitlines()[-1]) >= 15
+    assert int(out.stdout.strip().splitlines()[-1]) >= 22
 
 
 def test_source_scan_finds_no_jax_import():
@@ -66,9 +69,12 @@ def test_entry_points_default_to_the_card():
     if torch.cuda.is_available():
         pytest.skip("this host has a card: the default device exists")
     cfg = Config(batch_size=1, reader_height=64, reader_width=64, img_height=32, img_width=32)
-    for entry in (Evaluator, build_forward, AdversarialObjective):
+    for entry in (Evaluator, build_forward, AdversarialObjective, AdversarialLearner):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             entry(cfg)
+    train_cli = importlib.import_module("unsupervised_detection_tpu_torch.train.__main__")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_cli.main(["--allow_random_flow", "--batch_size=1"])
 
 
 def test_wrappers_take_plain_version_only_on_cpu():

@@ -1,5 +1,6 @@
 """Shared inputs for the PyTorch-port parity tests (tests/test_torch_*.py):
-seeded numpy frames, flax-layout weights, and the committed checkpoints."""
+seeded numpy frames, flax-layout weights, the committed checkpoints, JAX's
+augmentation draws, and a tree comparison."""
 
 import os
 
@@ -66,3 +67,31 @@ def committed_checkpoints():
     # restore it raw, as restore_params_scope's full-state branch does.
     state = ckpt._checkpointer().restore(GAME_CKPT)["state"]
     return jax.device_get((state["gen_params"], state["gen_stats"], pwc_params))
+
+
+def jax_augment_draws(key, b, h, w, crop):
+    """The draws of the JAX package's ops/augment.py::augment_pair from
+    `key`, made by JAX's own calls, as the port's apply functions take
+    them: {case, p, y0, x0} as (B,) torch tensors."""
+    import jax
+    import torch
+
+    r_flip, r_crop = jax.random.split(key)
+    case = jax.random.randint(r_flip, (b,), 0, 4)
+    r_p, r_y, r_x = jax.random.split(r_crop, 3)
+    p = crop + jax.random.uniform(r_p, (b,)) * (1.0 - crop)
+    y0 = jax.random.uniform(r_y, (b,)) * (h - h * p)
+    x0 = jax.random.uniform(r_x, (b,)) * (w - w * p)
+    return {k: torch.from_numpy(np.array(v)) for k, v in
+            (("case", case), ("p", p), ("y0", y0), ("x0", x0))}
+
+
+def assert_trees_equal(got, want):
+    """Two nested dicts of arrays hold the same paths and bit-equal leaves."""
+    import jax
+
+    flat_got = dict(jax.tree_util.tree_flatten_with_path(got)[0])
+    flat_want = dict(jax.tree_util.tree_flatten_with_path(want)[0])
+    assert set(flat_got) == set(flat_want)
+    for k, v in flat_want.items():
+        np.testing.assert_array_equal(np.asarray(flat_got[k]), np.asarray(v), err_msg=str(k))

@@ -13,8 +13,17 @@ for `GeneratorNet` and `PWCNet`:
 * the flax module names become the dotted state-dict names; the
   `_PartsConvCore` scope "Conv_0" and GenDeconv's inner "conv" scope drop.
 
-`random_jax_params` makes seeded random trees in the same flax layout with
-numpy, for runs that need full-width weights without a checkpoint.
+The recover net's trees map the same way (`recover_state_dict`; the
+`BiasedConv` scope "Conv_0" and `ResizeConv`'s inner "conv" scope drop),
+and `from_jax_train_state` carries a whole JAX `TrainState` (both nets'
+Adam moments, their counts and the step) into the port's training state.
+One table, `flax_paths`, holds the name mapping: the maps above read the
+trees by it, and `flax_trees` writes a port module's tensors back onto the
+flax trees by it, for the port's own saves (train/checkpoint.py).
+
+`random_jax_params` and `random_recover_params` make seeded random trees in
+the same flax layout with numpy, for runs that need full-width weights
+without a checkpoint.
 """
 
 from __future__ import annotations
@@ -23,9 +32,10 @@ from collections.abc import Mapping
 
 import numpy as np
 import torch
+from torch import nn
 
-from .models import GeneratorNet, PWCNet
-from .models.layers import ConvTranspose2D, GenConv, PWCConv
+from .models import GeneratorNet, PWCNet, RecoverNet
+from .models.layers import BiasedConv, ConvTranspose2D, GenConv, PWCConv, ResizeConv
 
 
 def _tensor(a) -> torch.Tensor:
@@ -50,37 +60,125 @@ def _leaves(tree: Mapping, prefix=()):
             yield prefix + (key,), value
 
 
+def _skeleton(cls, **kwargs) -> nn.Module:
+    """A port network on the meta device: its names without its memory."""
+    with torch.device("meta"):
+        return cls(**kwargs)
+
+
+def state_dict_from_trees(net: nn.Module, trees: Mapping[str, Mapping | None]
+                          ) -> dict[str, torch.Tensor]:
+    """`net`'s state-dict entries from {collection: flax tree}: each name is
+    read at `flax_paths(net)[name]`, 4-D kernels go HWIO -> OIHW (the
+    transposed convs' TF layout takes the same permutation). A collection
+    that is absent or None is skipped (a params-shaped Adam moment maps to
+    the parameters' names); every leaf given must map to a name."""
+    out = {}
+    for name, (collection, *path) in flax_paths(net).items():
+        tree = trees.get(collection)
+        if tree is None:
+            continue
+        for key in path:
+            if key not in tree:
+                raise KeyError(f"{collection}/{'/'.join(path)} missing for {name}")
+            tree = tree[key]
+        out[name] = hwio_to_oihw(tree) if np.ndim(tree) == 4 else _tensor(tree)
+    given = sum(1 for tree in trees.values() if tree is not None for _ in _leaves(tree))
+    if given != len(out):
+        raise ValueError(f"{given} flax leaves given, {len(out)} map to "
+                         f"{type(net).__name__}'s names")
+    return out
+
+
 def pwc_state_dict(pwc_params: Mapping) -> dict[str, torch.Tensor]:
-    out = {}
-    for (*scopes, leaf), value in _leaves(pwc_params):
-        is_kernel = leaf == "kernel"
-        if scopes[-1] == "Conv_0":          # PWCConv's _PartsConvCore
-            scopes = scopes[:-1]
-            t = hwio_to_oihw(value) if is_kernel else _tensor(value)
-        else:                               # ConvTranspose2D (up_flow*, up_feat*)
-            t = tf_transpose_kernel_to_torch(value) if is_kernel else _tensor(value)
-        out[".".join(scopes) + (".weight" if is_kernel else ".bias")] = t
-    return out
+    """`PWCNet` state dict; its levels are read off the tree's estimators."""
+    lvls = [int(k[len("estimator"):]) for k in pwc_params if k.startswith("estimator")]
+    net = _skeleton(PWCNet, pyr_lvls=max(lvls), flow_pred_lvl=min(lvls))
+    return state_dict_from_trees(net, {"params": pwc_params})
 
 
-def generator_state_dict(gen_params: Mapping, gen_stats: Mapping) -> dict[str, torch.Tensor]:
-    out = {}
-    for name, node in gen_params.items():
-        stats = gen_stats[name]
-        if "bn_gamma" not in node:          # GenDeconv wraps its GenConv as "conv"
-            node, stats = node["conv"], stats["conv"]
-        out[f"{name}.weight"] = hwio_to_oihw(node["conv"]["kernel"])
-        out[f"{name}.bias"] = _tensor(node["conv"]["bias"])
-        out[f"{name}.bn_gamma"] = _tensor(node["bn_gamma"])
-        out[f"{name}.bn_beta"] = _tensor(node["bn_beta"])
-        out[f"{name}.bn_moving_mean"] = _tensor(stats["bn_moving_mean"])
-        out[f"{name}.bn_moving_variance"] = _tensor(stats["bn_moving_variance"])
-    return out
+def generator_state_dict(gen_params: Mapping, gen_stats: Mapping | None = None
+                         ) -> dict[str, torch.Tensor]:
+    """The generator's parameters and, given `gen_stats`, its frozen BN
+    statistics. A params-shaped tree alone (an Adam moment) maps to the
+    parameters' names."""
+    return state_dict_from_trees(_skeleton(GeneratorNet),
+                                 {"params": gen_params, "batch_stats": gen_stats})
+
+
+def recover_state_dict(rec_params: Mapping) -> dict[str, torch.Tensor]:
+    """`RecoverNet` state dict (or a params-shaped Adam moment) from the
+    flax tree."""
+    return state_dict_from_trees(_skeleton(RecoverNet), {"params": rec_params})
 
 
 def from_jax_params(gen_params: Mapping, gen_stats: Mapping, pwc_params: Mapping):
     """(gen_state_dict, pwc_state_dict) from the flax trees."""
     return generator_state_dict(gen_params, gen_stats), pwc_state_dict(pwc_params)
+
+
+def from_jax_train_state(fields: Mapping) -> dict:
+    """The port's training state from the fields of a JAX `TrainState`
+    (train/learner.py:38-55) as nested dicts of numpy arrays: `step`, the
+    three nets' state dicts (`gen`, `rec`, `pwc`) and both Adam states
+    (`gen_opt`, `rec_opt`: `count` and the moments `m`, `v` keyed by the
+    parameters' names). A game-arm save holds no PWC weights: `pwc` is then
+    empty.
+
+    JAX's `rng` key has no torch counterpart and is not carried over: the
+    port draws its augmentation and gradient noise from its own
+    `torch.Generator`, seeded from `Config.seed` (train/learner.py)."""
+    def adam(opt, to_state_dict):
+        return {"count": int(opt["count"]), "m": to_state_dict(opt["m"]),
+                "v": to_state_dict(opt["v"])}
+
+    pwc = fields.get("pwc_params") or {}
+    return {"step": int(fields["step"]),
+            "gen": generator_state_dict(fields["gen_params"], fields["gen_stats"]),
+            "rec": recover_state_dict(fields["rec_params"]),
+            "pwc": pwc_state_dict(pwc) if pwc else {},
+            "gen_opt": adam(fields["gen_opt"], generator_state_dict),
+            "rec_opt": adam(fields["rec_opt"], recover_state_dict)}
+
+
+def flax_paths(net: nn.Module) -> dict[str, tuple[str, ...]]:
+    """State-dict name -> (collection, *flax path) of every parameter and
+    buffer of a port network; the collection is "params" or "batch_stats".
+    The one table of the name mapping: `state_dict_from_trees` reads by it
+    and `flax_trees` writes by it."""
+    out = {}
+    for name, m in net.named_modules():
+        path = tuple(name.split("."))
+        if isinstance(m, GenConv):
+            if m.nn2_upsample:
+                path += ("conv",)
+            out[f"{name}.weight"] = ("params", *path, "conv", "kernel")
+            out[f"{name}.bias"] = ("params", *path, "conv", "bias")
+            for leaf in ("bn_gamma", "bn_beta"):
+                out[f"{name}.{leaf}"] = ("params", *path, leaf)
+            for leaf in ("bn_moving_mean", "bn_moving_variance"):
+                out[f"{name}.{leaf}"] = ("batch_stats", *path, leaf)
+        elif isinstance(m, (PWCConv, BiasedConv, ConvTranspose2D)):
+            inner = {PWCConv: ("Conv_0",), BiasedConv: ("Conv_0",),
+                     ResizeConv: ("conv", "Conv_0"), ConvTranspose2D: ()}[type(m)]
+            out[f"{name}.weight"] = ("params", *path, *inner, "kernel")
+            out[f"{name}.bias"] = ("params", *path, *inner, "bias")
+    return out
+
+
+def flax_trees(net: nn.Module, tensors: Mapping[str, torch.Tensor]) -> dict[str, dict]:
+    """{collection: flax tree} of float32 numpy arrays from `tensors`, keyed
+    by `net`'s state-dict names (its state dict, or a subset such as an Adam
+    moment of its parameters). 4-D tensors go back to HWIO (the transposed
+    convs' TF layout is the same permutation)."""
+    paths = flax_paths(net)
+    trees: dict = {}
+    for name, t in tensors.items():
+        a = t.detach().float().cpu().numpy()
+        if a.ndim == 4:
+            a = np.transpose(a, (2, 3, 1, 0))
+        _set(trees, paths[name], np.ascontiguousarray(a))
+    return trees
 
 
 def _set(tree: dict, path, value) -> None:
@@ -131,3 +229,19 @@ def random_jax_params(generator: GeneratorNet, pwc: PWCNet, seed: int = 0):
             _set(pwc_params, path + ("kernel",), glorot((kh, kw, o, i), kh * kw * i, kh * kw * o))
             _set(pwc_params, path + ("bias",), f32(0.01 * rs.randn(o)))
     return gen_params, gen_stats, pwc_params
+
+
+def random_recover_params(recover: RecoverNet, seed: int = 0) -> dict:
+    """Seeded random recover params in the flax layout, shaped after the
+    given port module: glorot-uniform kernels, small random biases."""
+    rs = np.random.RandomState(seed)
+    tensors = {}
+    for name, t in recover.state_dict().items():
+        if t.dim() == 4:
+            o, i, kh, kw = t.shape
+            limit = np.sqrt(6.0 / (kh * kw * (i + o)))
+            tensors[name] = torch.from_numpy(
+                rs.uniform(-limit, limit, (o, i, kh, kw)).astype(np.float32))
+        else:
+            tensors[name] = torch.from_numpy((0.01 * rs.randn(*t.shape)).astype(np.float32))
+    return flax_trees(recover, tensors)["params"]

@@ -1,14 +1,15 @@
-"""Datasets and host feeding of the port (the test side), counterpart of
+"""Datasets and host feeding of the port, counterpart of
 unsupervised_detection_tpu/data."""
 
 from .base import PairIndex, SequenceDataset
 from .davis import Davis2016Reader
 from .fbms import FBMS59Reader
-from .loader import HostLoader, TestPipeline
+from .loader import HostLoader, TestPipeline, TrainPipeline
 from .segtrack import SegTrackV2Reader
 
 __all__ = ["PairIndex", "SequenceDataset", "Davis2016Reader", "FBMS59Reader",
-           "SegTrackV2Reader", "HostLoader", "TestPipeline", "get_reader"]
+           "SegTrackV2Reader", "HostLoader", "TestPipeline", "TrainPipeline",
+           "get_reader"]
 
 
 def get_reader(dataset: str, root_dir: str, **kw):

@@ -1,9 +1,8 @@
 """Host-side data loading: decode threads and an ordered prefetch queue.
 
-Counterpart of unsupervised_detection_tpu/data/loader.py (the test side:
-`HostLoader`, `TestPipeline`, `host_resize_image`, `host_resize_mask`; the
-train pipeline comes with the training slice). The host only decodes
-compressed frames, except in host mode.
+Counterpart of unsupervised_detection_tpu/data/loader.py: `HostLoader`,
+`TrainPipeline`, `TestPipeline`, `host_resize_image`, `host_resize_mask`.
+The host only decodes compressed frames, except in host mode.
 
 Two feed modes:
   * raw mode (datasets with a uniform raw frame size, e.g. DAVIS): batches
@@ -14,7 +13,8 @@ Two feed modes:
     ops/resize.py, the same matrices the device uses.
 
 cv2 is imported where frames are decoded, so the package imports on a host
-without it.
+without it. The pipelines take `read_rgb` (and `read_gray`) decode hooks,
+so a caller that holds frames in memory can feed them without files.
 """
 
 from __future__ import annotations
@@ -27,7 +27,7 @@ from typing import Callable, Iterator, List, Optional, Tuple
 import numpy as np
 
 from ..ops.resize import bilinear_resize_weights_np, nearest_resize_index_np
-from .base import SequenceDataset, test_pair_index
+from .base import SequenceDataset, test_pair_index, train_pair_index
 
 
 def _imread_rgb(path: str) -> np.ndarray:
@@ -100,6 +100,62 @@ class HostLoader:
                 yield done.result()
         finally:
             pool.shutdown(wait=True, cancel_futures=True)
+
+
+class TrainPipeline:
+    """Infinite shuffled stream of frame pairs with a random temporal shift.
+
+    The sampling of the reference train pipeline
+    (davis2016_data_utils.py:148-229): a `np.random.RandomState(seed)`
+    permutation of the pair index per epoch, batches of `batch_size` with
+    the remainder dropped, and per sample a shift t ~ U{min_temporal_len..
+    max_temporal_len} along the row's direction. Yields dict batches
+    (`img1_raw`/`img2_raw` uint8 in raw mode, `img1`/`img2` float32 at the
+    reader size in host mode); augmentation happens on the device.
+    """
+
+    def __init__(self, dataset: SequenceDataset, batch_size: int,
+                 min_temporal_len: int, max_temporal_len: int,
+                 reader_hw: Tuple[int, int] = (384, 640),
+                 raw_hw: Optional[Tuple[int, int]] = None,
+                 num_threads: int = 6, seed: int = 8964,
+                 read_rgb: Callable[[str], np.ndarray] = _imread_rgb):
+        self.index = train_pair_index(dataset, max_temporal_len)
+        self.batch_size = batch_size
+        self.min_t = min_temporal_len
+        self.max_t = max_temporal_len
+        self.reader_hw = reader_hw
+        self.raw_hw = raw_hw
+        self.read_rgb = read_rgb
+        self.rng = np.random.RandomState(seed)
+        self.loader = HostLoader(num_threads, prefetch=3)
+
+    def _spec_stream(self):
+        n = len(self.index)
+        while True:
+            order = self.rng.permutation(n)
+            for start in range(0, n - self.batch_size + 1, self.batch_size):
+                rows = order[start : start + self.batch_size]
+                shifts = self.rng.randint(self.min_t, self.max_t + 1, size=len(rows))
+                idx1 = self.index.numbers[rows]
+                idx2 = idx1 + shifts * self.index.directions[rows]
+                yield idx1, idx2
+
+    def _make_batch(self, spec):
+        idx1, idx2 = spec
+        rgb = self.read_rgb
+        if self.raw_hw is not None:
+            img1 = np.stack([rgb(self.index.images[i]) for i in idx1])
+            img2 = np.stack([rgb(self.index.images[i]) for i in idx2])
+            return {"img1_raw": img1, "img2_raw": img2}
+        img1 = np.stack([host_resize_image(rgb(self.index.images[i]), self.reader_hw)
+                         for i in idx1])
+        img2 = np.stack([host_resize_image(rgb(self.index.images[i]), self.reader_hw)
+                         for i in idx2])
+        return {"img1": img1, "img2": img2}
+
+    def __iter__(self):
+        return self.loader.prefetched(self._spec_stream(), self._make_batch)
 
 
 class TestPipeline:

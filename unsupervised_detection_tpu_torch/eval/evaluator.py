@@ -1,9 +1,10 @@
 """Batched evaluation, counterpart of
 unsupervised_detection_tpu/eval/evaluator.py: `Evaluator.infer_metrics`,
 `Evaluator.device_batch` and `evaluate_dataset` on its metrics-only path
-(evaluator.py:145-257 with `fetch_dense` false). The dense path (`infer`,
-overlays and .mat dumps) needs the recover net, which comes with the
-training slice. One card, no mesh."""
+(evaluator.py:145-257 with `fetch_dense` false). The dense path (`infer`:
+the recover net's flows, overlays and .mat dumps) also needs the flow
+colorizer and the visualizer, which the port does not have yet. One card,
+no mesh."""
 
 from __future__ import annotations
 
@@ -103,8 +104,9 @@ def evaluate_dataset(config: Config, evaluator: Evaluator, save_dir: Optional[st
     """
     if generate_visualization and save_dir:
         raise NotImplementedError(
-            "--generate_visualization with --test_save_dir needs the recover net "
-            "(the dense path), which the PyTorch port does not have yet")
+            "--generate_visualization with --test_save_dir needs the dense path (the "
+            "recover net's flows, the flow colorizer and the visualizer), which the "
+            "PyTorch port does not have yet")
     if batches is None:
         batches = build_test_pipeline(config)
 

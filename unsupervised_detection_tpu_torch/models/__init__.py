@@ -1,6 +1,8 @@
-"""The port's networks: PWCNet flow backbone and the mask generator."""
+"""The port's networks: PWCNet flow backbone, the mask generator and the
+recover (flow-inpainting) net."""
 
 from .generator import GeneratorNet
 from .pwcnet import PWCNet
+from .recover import RecoverNet
 
-__all__ = ["GeneratorNet", "PWCNet"]
+__all__ = ["GeneratorNet", "PWCNet", "RecoverNet"]

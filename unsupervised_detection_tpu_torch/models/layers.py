@@ -15,6 +15,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.resize import resize_bilinear
+
 BN_EPSILON = 1e-3  # tf.layers.batch_normalization default
 
 
@@ -148,3 +150,35 @@ class GenDeconv(GenConv):
 
     def __init__(self, in_ch: int, features: int):
         super().__init__(in_ch, features, 3, nn2_upsample=True)
+
+
+class BiasedConv(nn.Module):
+    """Conv + bias + LeakyReLU(0.2), Xavier-uniform init (counterpart of
+    `BiasedConv`, models/layers.py:170-193; the recover net's block).
+    TF SAME padding; `activation=False` leaves the conv linear."""
+
+    def __init__(self, in_ch: int, features: int, kernel_size: int, stride: int = 1,
+                 activation: bool = True):
+        super().__init__()
+        self.stride, self.activation = stride, activation
+        self.weight = nn.Parameter(torch.empty(features, in_ch, kernel_size, kernel_size))
+        self.bias = nn.Parameter(torch.zeros(features))
+        nn.init.xavier_uniform_(self.weight)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = conv2d_same(x, self.weight, self.bias, self.stride)
+        return F.leaky_relu(y, 0.2) if self.activation else y
+
+
+class ResizeConv(BiasedConv):
+    """TF1-legacy bilinear resize to `size`, then a stride-1 BiasedConv
+    (counterpart of `ResizeConv`, models/layers.py:196-212). The default
+    kernel 4 is even, so TF SAME pads it 1 before and 2 after."""
+
+    def __init__(self, in_ch: int, features: int, kernel_size: int = 4,
+                 activation: bool = True):
+        super().__init__(in_ch, features, kernel_size, 1, activation)
+
+    def forward(self, x: torch.Tensor, size) -> torch.Tensor:
+        x = resize_bilinear(x.permute(0, 2, 3, 1), size).permute(0, 3, 1, 2)
+        return super().forward(x)

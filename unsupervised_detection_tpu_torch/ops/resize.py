@@ -106,7 +106,10 @@ def _matrix(builder, *args, like: torch.Tensor) -> torch.Tensor:
 
 @functools.lru_cache(maxsize=64)
 def _device_matrix(builder, args, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
-    return torch.from_numpy(builder(*args)).to(device=device, dtype=dtype)
+    # made outside inference mode: a matrix first built by an inference
+    # call is later saved for backward by a training step
+    with torch.inference_mode(False):
+        return torch.from_numpy(builder(*args)).to(device=device, dtype=dtype)
 
 
 def _apply_separable(x: torch.Tensor, wh: torch.Tensor, ww: torch.Tensor) -> torch.Tensor:
@@ -160,3 +163,23 @@ def resize_bilinear_composed(x: torch.Tensor, mid_hw, out_hw) -> torch.Tensor:
     return _apply_separable(
         x, _matrix(_composed_bilinear_weights_np, in_h, mh, oh, like=x),
         _matrix(_composed_bilinear_weights_np, in_w, mw, ow, like=x))
+
+
+def crop_resize_matrices(in_size: int, out_size: int, scale: torch.Tensor,
+                         offset: torch.Tensor, clamp_lo: torch.Tensor | None = None,
+                         clamp_hi: torch.Tensor | None = None) -> torch.Tensor:
+    """(B, out_size, in_size) bilinear crop+resize matrices from per-sample
+    float32 (B,) tensors, built on their device (counterpart of
+    `crop_resize_matrices`, ops/resize.py:208-224, which the JAX package
+    vmaps over the batch): source `i * scale + offset` in float32, clamped
+    to [clamp_lo, clamp_hi] (default the whole axis), tent weights at the
+    integer taps. The random crop of the augmentation draws `scale` and
+    `offset` per step, so these matrices are not cached."""
+    lo = 0.0 if clamp_lo is None else clamp_lo[:, None]
+    hi = in_size - 1.0 if clamp_hi is None else clamp_hi[:, None]
+    dev = scale.device
+    src = torch.arange(out_size, dtype=torch.float32, device=dev) * scale[:, None] + offset[:, None]
+    src = torch.minimum(torch.maximum(src, torch.as_tensor(lo, device=dev)),
+                        torch.as_tensor(hi, device=dev))
+    k = torch.arange(in_size, dtype=torch.float32, device=dev)
+    return torch.clamp(1.0 - (src[:, :, None] - k).abs(), min=0.0)

@@ -7,7 +7,8 @@ test_generator.py with the same flag surface and summary lines:
 `--ckpt_file` is an evaluation checkpoint written by
 tools/export_torch_checkpoint.py. Prints per-category and dataset IoU/MAE
 (metrics-only path; `--generate_visualization` with `--test_save_dir` needs
-the recover net, which the port does not have yet, and raises).
+the dense path, which the port does not have yet, and raises). A training
+save of the port (`model.best`, `model-<epoch>`) is read as it is.
 """
 
 from __future__ import annotations

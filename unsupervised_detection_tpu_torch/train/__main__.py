@@ -1,0 +1,36 @@
+"""Adversarial training CLI of the port, counterpart of the JAX package's
+train.py with the same flag surface:
+
+    python -m unsupervised_detection_tpu_torch.train --root_dir=DAVIS \\
+        --flow_ckpt=pwc.npz --checkpoint_dir=ckpt ...
+
+Runs on the card. `--flow_ckpt` (and `--recover_ckpt`, `--full_model_ckpt`)
+name the port's `.npz` saves (train/checkpoint.py; tools/
+export_torch_checkpoint.py writes them from JAX checkpoints). `--seed`
+seeds the nets' initial weights, the train pipeline's shuffle and the
+torch.Generator of the augmentation and gradient-noise draws.
+"""
+
+from __future__ import annotations
+
+import os
+import pprint
+import sys
+
+from ..config import parse_flags
+from .driver import train
+
+
+def main(argv, device=None):
+    """Run the CLI on `argv` (the flags, without the program name) on
+    `device`: None is the card, and raises without one. Returns the final
+    `TrainState`."""
+    config = parse_flags(argv)
+    pprint.PrettyPrinter().pprint(config.__dict__)
+    if config.checkpoint_dir:
+        os.makedirs(config.checkpoint_dir, exist_ok=True)
+    return train(config, device=device)
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

@@ -1,0 +1,167 @@
+"""Adversarial learner: train state, the two players' steps, validation.
+
+Counterpart of unsupervised_detection_tpu/train/learner.py (reference
+models/adversarial_learner.py:206-448) on one device, without a mesh:
+
+  * `TrainState` holds the step, the torch.Generator of the augmentation
+    and gradient-noise draws, the three nets (the objective's modules,
+    updated in place) and the two TF1 Adam states, whose counts give the
+    shared bias-correction step (train/optim.py);
+  * each step augments the batch on the device, runs the forward with
+    PWC frozen, and takes gradients of its own loss for its own net only
+    (`torch.autograd.grad`); the generator's loss still back-propagates
+    through the recover net to the mask;
+  * per-element clipping to +-clip and the generator's vanishing-gradient
+    noise (loss_utils.py:7-32); `select_step` is the reference's 1:3
+    alternation.
+
+The JAX learner's TensorBoard summary images need the flow colorizer, which
+the port does not have yet, and are left out.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from ..config import Config
+from ..device import precision_scope
+from ..data.device_input import DeviceFeeder
+from ..models import GeneratorNet, PWCNet, RecoverNet
+from ..ops.augment import augment_pair, sample_augment
+from ..ops.resize import central_crop_resize
+from .objective import AdversarialObjective
+from .optim import AdamState, adam_apply, adam_init
+
+
+@dataclasses.dataclass
+class TrainState:
+    """The nets here ARE the learner's `objective` modules, not copies: the
+    steps update their parameters in place and return the same state with
+    its step, Adam states and rng advanced. Two `init_state()` calls give
+    states that share these weights but not their Adam moments."""
+
+    step: int                   # completed alternation cycles (global_step)
+    rng: torch.Generator         # on the CPU: the same draws on every device
+    generator: GeneratorNet
+    recover: RecoverNet
+    pwc: PWCNet
+    gen_opt: AdamState
+    rec_opt: AdamState
+
+    @property
+    def shared_adam_t(self) -> int:
+        """The shared Adam step of the NEXT apply of either net."""
+        return self.gen_opt.count + self.rec_opt.count + 1
+
+
+def _clip_or_noise(rng: torch.Generator, grads, clip_value: float,
+                   noise_threshold: float, can_change: bool) -> list[torch.Tensor]:
+    """Per-element clip to +-clip_value. With `can_change` (the generator),
+    when the mean over tensors of mean|g| of the unclipped gradients is
+    below `noise_threshold` (the all-mask / no-mask minimum), every
+    gradient is replaced by |U(-clip, clip)| noise drawn from `rng`
+    (loss_utils.py:7-26)."""
+    clipped = [g.clamp(-clip_value, clip_value) for g in grads]
+    if not can_change:
+        return clipped
+    grad_avg = torch.stack([g.abs().mean() for g in grads]).mean()
+    if not bool(grad_avg < noise_threshold):
+        return clipped
+    return [(torch.rand(g.shape, generator=rng) * (2.0 * clip_value) - clip_value)
+            .abs().to(device=g.device, dtype=g.dtype) for g in grads]
+
+
+class AdversarialLearner:
+    """The objective's three nets on one device, the two players' steps and
+    validation. `device=None` means the first CUDA device and raises
+    without one. The nets' initial weights come from `config.seed`."""
+
+    def __init__(self, config: Config, device=None):
+        self.config = config
+        # the nets are initialized on the CPU, from the CPU generator
+        with torch.random.fork_rng(devices=[]):
+            torch.default_generator.manual_seed(config.seed)
+            self.objective = AdversarialObjective(config, device)
+        self.device = self.objective.device
+        self.dtype = self.objective.dtype
+        for net in (self.objective.generator, self.objective.recover, self.objective.pwc):
+            net.requires_grad_(False)
+        # (lr, b1, b2, eps) of train/optim.adam_apply (adversarial_learner.py:216-233)
+        self.adam_hparams = (config.learning_rate, config.beta1, 0.999, config.adam_epsilon)
+        self.feeder = DeviceFeeder((config.reader_height, config.reader_width), self.device)
+
+    def init_state(self) -> TrainState:
+        obj = self.objective
+        return TrainState(
+            step=0, rng=torch.Generator().manual_seed(self.config.seed),
+            generator=obj.generator, recover=obj.recover, pwc=obj.pwc,
+            gen_opt=adam_init(dict(obj.generator.named_parameters())),
+            rec_opt=adam_init(dict(obj.recover.named_parameters())))
+
+    def _step(self, state: TrainState, img1, img2, draws, net, loss_key: str,
+              opt_name: str, can_change: bool):
+        cfg = self.config
+        if draws is None:
+            b, h, w, _ = img1.shape
+            draws = sample_augment(state.rng, b, h, w, cfg.train_crop)
+        params = dict(net.named_parameters())
+        with precision_scope(self.dtype):
+            img1, img2 = augment_pair(draws, img1, img2)
+            net.requires_grad_(True)
+            try:
+                out = self.objective.forward(img1, img2)
+                grads = torch.autograd.grad(out.losses[loss_key], list(params.values()))
+            finally:
+                net.requires_grad_(False)
+        grads = _clip_or_noise(state.rng, grads, cfg.gradient_clip,
+                               cfg.grad_noise_threshold, can_change)
+        opt = getattr(state, opt_name)
+        t = state.shared_adam_t if cfg.adam_shared_step else opt.count + 1
+        new_opt = adam_apply(dict(zip(params, grads)), opt, params, t, *self.adam_hparams)
+        setattr(state, opt_name, new_opt)
+        losses = {k: v.detach() for k, v in out.losses.items()}
+        return state, losses, grads
+
+    def generator_step(self, state: TrainState, img1: torch.Tensor, img2: torch.Tensor,
+                       draws: dict | None = None):
+        """One generator update from a reader-resolution batch; returns
+        (state, losses before the update, the applied gradients). `draws`
+        are the augmentation draws (`ops.augment.sample_augment`); None
+        draws them from `state.rng`."""
+        return self._step(state, img1, img2, draws, state.generator, "generator",
+                          "gen_opt", True)
+
+    def recover_step(self, state: TrainState, img1: torch.Tensor, img2: torch.Tensor,
+                     draws: dict | None = None):
+        """One recover update; as `generator_step`, without the noise."""
+        return self._step(state, img1, img2, draws, state.recover, "recover",
+                          "rec_opt", False)
+
+    @staticmethod
+    def incr_step(state: TrainState) -> TrainState:
+        state.step += 1
+        return state
+
+    @torch.inference_mode()
+    def val_step(self, state: TrainState, img1: torch.Tensor, img2: torch.Tensor,
+                 gt_masks: torch.Tensor) -> torch.Tensor:
+        """Sum of the per-sample validation IoU of one batch, after the
+        test-time central crop."""
+        cfg = self.config
+        with precision_scope(self.dtype):
+            if cfg.test_crop != 1.0:
+                img1 = central_crop_resize(img1, cfg.test_crop)
+                img2 = central_crop_resize(img2, cfg.test_crop)
+                gt_masks = central_crop_resize(gt_masks, cfg.test_crop)
+            return self.objective.validation_iou(img1, img2, gt_masks).sum()
+
+    def select_step(self, sub_step: int):
+        """The reference alternation (adversarial_learner.py:386-389):
+        sub-steps with (step % (iters_rec + iters_gen)) < iters_rec train the
+        recover net, the rest the generator; `sub_step` starts at 1."""
+        cfg = self.config
+        if (sub_step % (cfg.iters_rec + cfg.iters_gen)) < cfg.iters_rec:
+            return self.recover_step
+        return self.generator_step

@@ -1,34 +1,59 @@
-"""The inference half of the contextual-information-separation objective,
-counterpart of unsupervised_detection_tpu/train/objective.py:48-133:
+"""The contextual-information-separation objective, counterpart of
+unsupervised_detection_tpu/train/objective.py (reference
+models/adversarial_learner.py:72-204):
 
-  flow = PWC(I1, I2) at reader resolution, resized to the working
-         resolution with the vectors NOT rescaled (reference
-         adversarial_learner.py:87-97) and divided by flow_normalizer;
-  M    = G(I1, standardize(flow)).
+  flow   = PWC(I1, I2) at reader resolution, resized to the working
+           resolution with the vectors NOT rescaled (reference
+           adversarial_learner.py:87-97) and divided by flow_normalizer;
+  M      = G(I1, standardize(flow));         Mc = 1 - M
+  F_hat  = R(I1, flow*(1-M), M)
+  F_hatc = R(I1, flow*(1-Mc), Mc)
+  F_img  = R(I1, 0, 1)                       (image-only prior)
 
-The recover net and the losses come with the training slice.
+  recover_loss   = (rho(F_hat,F,M) + rho(F_hatc,F,Mc) + rho(F_img,F,1)) / BHW
+  generator_loss = mean(1 - rho(F_hat,F,M)/(rho(F_img,F,M)+eps))
+                 + mean(1 - rho(F_hatc,F,Mc)/(rho(F_img,F,Mc)+eps))
+
+with rho the per-sample masked Charbonnier sum (ops/losses.py). PWC is
+frozen: its forward runs without autograd.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
 from ..config import Config
 from ..device import compute_dtype, resolve_device
-from ..models import GeneratorNet, PWCNet
+from ..models import GeneratorNet, PWCNet, RecoverNet
 from ..ops.flow import standardize_flow
-from ..ops.resize import resize_bilinear, resize_bilinear_composed
+from ..ops.losses import charbonnier_loss
+from ..ops.metrics import compute_all_iou
+from ..ops.resize import resize_bilinear, resize_bilinear_composed, resize_nearest
+
+
+class ForwardOutputs(NamedTuple):
+    losses: dict[str, torch.Tensor]
+    image: torch.Tensor
+    flow: torch.Tensor
+    mask: torch.Tensor
+    flow_masked: torch.Tensor
+    pred_flow: torch.Tensor
+    pred_flow_compl: torch.Tensor
 
 
 class AdversarialObjective:
-    """Holds the generator and the frozen PWC net for one config on one
-    device. Weights come from `load_state_dicts` (see convert.py)."""
+    """Holds the generator, the recover net and the frozen PWC net for one
+    config on one device. Weights come from `load_state_dicts` (see
+    convert.py) or from a training save (train/checkpoint.py)."""
 
     def __init__(self, config: Config, device=None):
         self.config = config
         self.device = resolve_device(device)
         self.dtype = compute_dtype(config.compute_dtype)
         self.generator = GeneratorNet(dtype=self.dtype).to(self.device).eval()
+        self.recover = RecoverNet(dtype=self.dtype).to(self.device).eval()
         self.pwc = PWCNet(
             pyr_lvls=config.pwc_pyr_lvls,
             flow_pred_lvl=config.pwc_flow_pred_lvl,
@@ -80,3 +105,62 @@ class AdversarialObjective:
 
     def generate_mask(self, image: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
         return self.generator(image, standardize_flow(flow))
+
+    # --- losses -----------------------------------------------------------
+    def losses_from_flow(self, image: torch.Tensor, flow: torch.Tensor) -> ForwardOutputs:
+        """All two-player losses from the working-resolution image and flow:
+        the three recover calls share the recover net's weights."""
+        cfg = self.config
+        mask = self.generate_mask(image, flow)
+        mask_c = 1.0 - mask
+        flow_masked = flow * (1.0 - mask)
+        flow_masked_c = flow * (1.0 - mask_c)
+
+        pred = self.recover(image, flow_masked, mask)
+        pred_c = self.recover(image, flow_masked_c, mask_c)
+        pred_img = self.recover(image, torch.zeros_like(flow), torch.ones_like(mask))
+
+        cbn = cfg.cbn
+        rec_loss = charbonnier_loss(flow, pred, mask, cbn)              # (B,)
+        rec_compl_loss = charbonnier_loss(flow, pred_c, mask_c, cbn)    # (B,)
+        image_prior = charbonnier_loss(flow, pred_img, torch.ones_like(flow), cbn)
+        num_pixels = cfg.img_width * cfg.img_height * image.shape[0]
+        recover_loss = (rec_loss.sum() + rec_compl_loss.sum() + image_prior.sum()) / num_pixels
+
+        den = charbonnier_loss(flow, pred_img, mask, cbn) + cfg.epsilon
+        red_rate_object = (1.0 - rec_loss / den).mean()
+        den_c = charbonnier_loss(flow, pred_img, mask_c, cbn) + cfg.epsilon
+        red_rate_compl = (1.0 - rec_compl_loss / den_c).mean()
+
+        losses = {
+            "generator": red_rate_object + red_rate_compl,
+            "recover": recover_loss,
+            "red_rate": red_rate_object,
+            "red_rate_compl": red_rate_compl,
+            "reconstruction_loss": rec_loss[0],
+            "reconstruction_compl_loss": rec_compl_loss[0],
+            "denominator_red_rate": den[0],
+            "denominator_red_rate_compl": den_c[0],
+        }
+        return ForwardOutputs(
+            losses=losses, image=image, flow=flow, mask=mask, flow_masked=flow_masked,
+            pred_flow=pred * mask + flow * (1.0 - mask),
+            pred_flow_compl=pred * mask_c + flow * (1.0 - mask_c))
+
+    def forward(self, img1: torch.Tensor, img2: torch.Tensor) -> ForwardOutputs:
+        """Train/val forward from reader-resolution frames."""
+        flow = self.compute_flow(img1, img2)
+        image, flow = self.resize_to_working(img1, flow)
+        return self.losses_from_flow(image, flow)
+
+    # --- validation -------------------------------------------------------
+    def validation_iou(self, img1: torch.Tensor, img2: torch.Tensor,
+                       gt_masks: torch.Tensor) -> torch.Tensor:
+        """(B,) IoU of the disambiguated masks against the GT resized
+        (nearest) to the working resolution (adversarial_learner.py:133-137)."""
+        cfg = self.config
+        flow = self.compute_flow(img1, img2)
+        image, flow = self.resize_to_working(img1, flow)
+        gt = resize_nearest(gt_masks, (cfg.img_height, cfg.img_width))
+        mask = self.generate_mask(image, flow)
+        return compute_all_iou(pred_masks=mask, gt_masks=gt)
