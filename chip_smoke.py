@@ -16,8 +16,11 @@ Phases, in order, each printed with its wall seconds:
              ragged shapes (C=1, C % 8 != 0) with flows that drive taps past
              every clamp; the tile copy on both axes at offset 2; in float32
              and bfloat16, with the stated tolerance; both again at the train
-             phase's level shapes (batch 16, r=2). Then each kernel's time
-             at batch 8: CUDA events over 20 back-to-back calls (`ms`, host
+             phase's level shapes (batch 16, r=2); the two backward kernels
+             against their plain backwards at the five levels at batch 16,
+             r=4 and r=2, and at the ragged shapes, the warp's with
+             clamp-driving and zero flows. Then each kernel's time at batch
+             8 (the backward kernels' at batch 16, r=4): CUDA events over 20 back-to-back calls (`ms`, host
              overhead included) and the kernel's own device time per launch
              from torch.profiler over 20 launches (`device_ms`), beside its
              bound, the share of the bound, its plain version's time and a
@@ -62,6 +65,24 @@ Phases, in order, each printed with its wall seconds:
              on a DAVIS-layout tree of JPEGs written with cv2 (one epoch of 4
              sub-steps, `model.best` and `model-1`), and `test_generator` on
              that `model.best`;
+* pretrain -- both pretraining stages at full width (reader 384x640, PWC 6
+             levels r=4, batch 16, seeded random weights, synthetic scenes
+             with max_mag 12), float32 (TF32 off) and bfloat16:
+             `pretrain_pwc` for a warm-up and 8 timed steps (ms per step
+             from CUDA events, samples/s, launches: 5 cost volume, 5 of its
+             backward, 5 warp (4 in PWC, 1 in the synthesizer) and 4 of its
+             backward per step, finite weights); the first step's loss and
+             EPE, bfloat16 against float32; one profiled step (busy share,
+             top kernels) and one step whose forward and backward kernel
+             calls are held to their plain versions; one step's loss, EPE
+             and gradients at batch 2, float32, card against CPU; 40 steps
+             on easy scenes (max_mag 3) at batch 4 per dtype: on fresh
+             scenes (the curve, and the initial net's EPE on the same
+             scenes, printed) and on one fixed scene (the curve must fall); `pretrain_recover` at working 192x384, batch 16, on
+             numpy frames (ms per step, 5 / 4 forward and 0 backward
+             launches per step); then the chain pretrain_flow ->
+             pretrain_recover -> the train CLI -> test_generator through
+             each CLI's main(argv) on a cv2 JPEG tree;
 * repro   -- the port of tools/repro_mosaic_dynamic_dma.py (`dynamic_copy.
              repro`), the tile copy's own path: 2 launches, bit-equal;
 * profile -- device time by kernel over three of the path's forwards in
@@ -113,10 +134,11 @@ from unsupervised_detection_tpu_torch.benchlib import (  # noqa: E402
 from unsupervised_detection_tpu_torch.eval import Evaluator  # noqa: E402
 from unsupervised_detection_tpu_torch.ops import _build  # noqa: E402
 from unsupervised_detection_tpu_torch.ops.cost_volume import (  # noqa: E402
-    cost_volume, cost_volume_plain)
-from unsupervised_detection_tpu_torch.ops.warp import dense_image_warp, warp_plain  # noqa: E402
+    cost_volume, cost_volume_backward, cost_volume_backward_plain, cost_volume_plain)
+from unsupervised_detection_tpu_torch.ops.warp import (  # noqa: E402
+    dense_image_warp, warp_backward, warp_backward_plain, warp_plain)
 
-PHASES = ("card", "build", "kernels", "path", "eval", "train", "repro", "profile")
+PHASES = ("card", "build", "kernels", "path", "eval", "train", "pretrain", "repro", "profile")
 BATCH = 8
 # PWC pyramid level -> (H, W, C) at the 384x640 reader resolution
 LEVELS = {6: (6, 10, 196), 5: (12, 20, 128), 4: (24, 40, 96), 3: (48, 80, 64), 2: (96, 160, 32)}
@@ -184,6 +206,29 @@ TRAIN_GRAD_REL, TRAIN_DELTA_REL = 1e-4, 0.05
 LOSS_KEYS = ("generator", "recover", "red_rate", "red_rate_compl", "reconstruction_loss",
              "reconstruction_compl_loss", "denominator_red_rate",
              "denominator_red_rate_compl")
+# the pretrain phase: full width, PWC r=4, batch 16 (pretrain_flow.py's
+# defaults); backward kernels are timed at its level shapes
+PRETRAIN_SIZES = dict(reader_height=384, reader_width=640, pwc_pyr_lvls=6, pwc_search_range=4)
+PRETRAIN_BATCH, PRETRAIN_PARITY_BATCH, PRETRAIN_TIMED = 16, 2, 8
+LEARN_STEPS, LEARN_BATCH = 40, 4
+# Backward kernels against their plain backwards on the card, each
+# gradient: float32 within 1e-5 of its largest element (sums of up to 81
+# products in other orders; the warp's image gradient adds up to four
+# contributions per source pixel and tap with float32 atomics in no fixed
+# order, n terms rounding to ~sqrt(n) * 2^-24 of their sum); bfloat16
+# within 2^-7 of it (both sum in float32 and round once, and an atomic sum
+# near a tie may round to the neighbouring bfloat16: one ulp, 2^-8 of the
+# value).
+BACKWARD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0**-7}
+# pretrain_pwc, card vs CPU at batch 2, float32 with TF32 off: the loss and
+# the EPE within 1e-4 relative, every gradient element within 1e-4 of the
+# net's largest |gradient| (the train phase's limits, for its reasons).
+PRETRAIN_LOSS_RTOL, PRETRAIN_GRAD_REL = 1e-4, 1e-4
+# bfloat16 vs float32, the first step's loss and EPE from the same weights
+# and batch: bfloat16 keeps 8 bits (~0.4% per rounding), the loss is a mean
+# over ~4M per-pixel errors dominated by the targets, so roundings average
+# out; fixed before the first call at 3e-2 relative.
+PRETRAIN_BF16_RTOL = 3e-2
 KERNEL_SOURCES = {
     "cost_volume": ("unsupervised_detection_tpu_torch/csrc/cost_volume.cu",
                     "unsupervised_detection_tpu/ops/pallas/cost_volume_kernel.py:57"),
@@ -191,10 +236,18 @@ KERNEL_SOURCES = {
              "unsupervised_detection_tpu/ops/pallas/warp_kernel.py:219"),
     "dynamic_copy": ("unsupervised_detection_tpu_torch/csrc/dynamic_copy.cu",
                      "tools/repro_mosaic_dynamic_dma.py:34"),
+    # no TPU kernel: the JAX package takes these gradients in XLA
+    "cost_volume_backward": ("unsupervised_detection_tpu_torch/csrc/cost_volume_backward.cu",
+                             "unsupervised_detection_tpu/ops/cost_volume.py:57"),
+    "warp_backward": ("unsupervised_detection_tpu_torch/csrc/warp_backward.cu",
+                      "unsupervised_detection_tpu/ops/warp.py:150"),
 }
+BACKWARD_KERNELS = ("cost_volume_backward", "warp_backward")
 # device-side kernel names (substrings of the profiler's event names)
 KERNEL_SYMBOLS = {"cost_volume": "cost_volume_kernel", "warp": "warp_kernel",
-                  "dynamic_copy": "dynamic_copy_kernel"}
+                  "dynamic_copy": "dynamic_copy_kernel",
+                  "cost_volume_backward": "cost_volume_backward_kernel",
+                  "warp_backward": "warp_backward_kernel"}
 
 
 def log(msg: str) -> None:
@@ -227,6 +280,21 @@ def warp_bound(b, h, w, c, dtype):
     item = torch.empty((), dtype=dtype).element_size()
     return bound_ms(2 * b * h * w * c * item + b * h * w * 2 * item,
                     9.0 * b * h * w * c + 10.0 * b * h * w, dtype)
+
+
+def cost_backward_bound(b, h, w, c, r, dtype):
+    # reads c1, warp, out and g, writes g_c1 and g_warp; one FMA per pair
+    # and gradient
+    k = (2 * r + 1) ** 2
+    item = torch.empty((), dtype=dtype).element_size()
+    return bound_ms((4 * c + 2 * k) * b * h * w * item, 4.0 * b * h * w * c * k, dtype)
+
+
+def warp_backward_bound(b, h, w, c, dtype):
+    # reads image, flow and g, writes g_image and g_flow; ~20 operations per
+    # element (the lerps, the two flow sums, the four weights)
+    item = torch.empty((), dtype=dtype).element_size()
+    return bound_ms((3 * c + 4) * b * h * w * item, 20.0 * b * h * w * c, dtype)
 
 
 def clamp_flow(gen, b, h, w, dtype):
@@ -338,6 +406,49 @@ def check_kernels() -> dict:
     return err
 
 
+def check_backward(name: str, got, want, dtype) -> float:
+    """Hold both gradients of a backward kernel against its plain version,
+    each within BACKWARD_TOL of its largest element; returns the max abs
+    err."""
+    err = 0.0
+    for part, g, w in zip(("first", "second"), got, want):
+        limit = BACKWARD_TOL[dtype] * w.float().abs().max().item()
+        err = max(err, check(f"{name} ({part} gradient)", g, w, limit))
+    return err
+
+
+def check_backward_kernels() -> dict:
+    """Both backward kernels against their plain backwards: the five PWC
+    level shapes at the pretrain phase's batch 16, r=4 and r=2, the ragged
+    shapes, clamp-driving and zero flows for the warp, float32 and
+    bfloat16; returns max abs err by kernel."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    err = dict.fromkeys(BACKWARD_KERNELS, 0.0)
+    level_shapes = [(f"pretrain L{lvl}", (PRETRAIN_BATCH, h, w, c))
+                    for lvl, (h, w, c) in LEVELS.items()]
+    for dtype in DTYPES:
+        dn = dtype_name(dtype)
+        for tag, shape in level_shapes + [("ragged", s) for s in RAGGED_COST]:
+            c1, wp = randn(gen, shape, dtype), randn(gen, shape, dtype)
+            for r in (4, 2):
+                out = cost_volume(c1, wp, r)
+                g = randn(gen, out.shape, dtype)
+                err["cost_volume_backward"] = max(err["cost_volume_backward"], check_backward(
+                    f"cost_volume_backward {tag} r={r} {dn} {shape}",
+                    cost_volume_backward(c1, wp, out, g, r),
+                    cost_volume_backward_plain(c1, wp, out, g, r), dtype))
+        for tag, shape in level_shapes[1:] + [("ragged", s) for s in RAGGED_WARP]:
+            image, g = randn(gen, shape, dtype), randn(gen, shape, dtype)
+            for kind, flow in (("clamp", clamp_flow(gen, *shape[:3], dtype)),
+                               ("zero", torch.zeros((*shape[:3], 2), device="cuda",
+                                                    dtype=dtype))):
+                err["warp_backward"] = max(err["warp_backward"], check_backward(
+                    f"warp_backward {tag} {kind} flow {dn} {shape}",
+                    warp_backward(image, flow, g), warp_backward_plain(image, flow, g), dtype))
+    torch.cuda.synchronize()
+    return err
+
+
 def grid_sample_args(image, flow):
     """`F.grid_sample` arguments computing the warp up to rounding (border
     padding = the TF clamps), NCHW view of the image."""
@@ -407,6 +518,57 @@ def time_kernels(with_plain: bool = True) -> dict:
     return totals
 
 
+def time_backward_kernels(with_plain: bool = True) -> dict:
+    """Both backward kernels at the pretrain phase's level shapes (batch 16,
+    r=4), and their sums over one pretrain step's launches, per dtype:
+    {dtype: {kernel: sums}}. The warp's yardstick is the backward of
+    `F.grid_sample` (aten::grid_sampler_2d_backward, both gradients in one
+    call): the same work, with its own coordinate and clamp rules."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    keys = ("ms", "device_ms", "plain_ms", "bound_ms", "library_ms")
+    totals = {}
+    for dtype in DTYPES:
+        dn = dtype_name(dtype)
+        t = {k: dict.fromkeys(keys, 0.0) for k in BACKWARD_KERNELS}
+        by = {k: {"bytes": 0.0, "operations": 0.0} for k in t}
+        for lvl, (h, w, c) in LEVELS.items():
+            shape = (PRETRAIN_BATCH, h, w, c)
+            c1, wp = randn(gen, shape, dtype), randn(gen, shape, dtype)
+            out = cost_volume(c1, wp, 4)
+            g = randn(gen, out.shape, dtype)
+            rows = {"cost_volume_backward": time_level(
+                "cost_volume_backward", cost_volume_backward, (c1, wp, out, g, 4),
+                cost_backward_bound(*shape, 4, dtype),
+                plain=cost_volume_backward_plain if with_plain else None)}
+            if lvl != 6:
+                flow = (torch.randn((PRETRAIN_BATCH, h, w, 2), generator=gen, device="cuda")
+                        * 2.0).to(dtype)
+                gi = randn(gen, shape, dtype)
+                image, grid = grid_sample_args(c1, flow)[:2]
+                lib_args = (gi.permute(0, 3, 1, 2), image, grid, 0, 1, True, [True, True])
+                rows["warp_backward"] = time_level(
+                    "warp_backward", warp_backward, (c1, flow, gi),
+                    warp_backward_bound(*shape, dtype),
+                    plain=warp_backward_plain if with_plain else None,
+                    library=(torch.ops.aten.grid_sampler_2d_backward, lib_args))
+            for name, row in rows.items():
+                log("kernels: " + json.dumps({"time": f"{name} L{lvl} {dn} batch "
+                                              f"{PRETRAIN_BATCH}" + (" r=4" if name ==
+                                                                     "cost_volume_backward"
+                                                                     else ""), **row}))
+                for k in keys:
+                    t[name][k] += row.get(k, 0.0)
+                by[name][row["bound_by"]] += row["bound_ms"]
+        for name in t:
+            t[name]["bound_by"] = max(by[name], key=by[name].get)
+            t[name]["share_of_bound"] = t[name]["bound_ms"] / t[name]["device_ms"]
+        # no single PyTorch call computes the cost volume's gradient
+        t["cost_volume_backward"]["library_ms"] = None
+        totals[dn] = t
+        log("kernels: " + json.dumps({"per_pretrain_step": dn, "batch": PRETRAIN_BATCH, **t}))
+    return totals
+
+
 def time_copy() -> dict:
     """The tile copy at offset 2, lane case (the repro's first)."""
     from unsupervised_detection_tpu_torch.ops.dynamic_copy import (
@@ -426,11 +588,16 @@ def time_copy() -> dict:
 
 def phase_kernels(report: dict) -> None:
     err = check_kernels()
+    err.update(check_backward_kernels())
     totals = time_kernels()
+    backward = time_backward_kernels()
     copy = time_copy()
-    # the JSON line: float32, summed over one forward's launches at batch 8
+    # the JSON line: float32, summed over one forward's launches at batch 8,
+    # and for the backward kernels over one pretrain step's at batch 16
     for name in ("cost_volume", "warp"):
         report[name] = {"max_abs_err": err[name], **totals["float32"][name]}
+    for name in BACKWARD_KERNELS:
+        report[name] = {"max_abs_err": err[name], **backward["float32"][name]}
     report["dynamic_copy"] = {"max_abs_err": err["dynamic_copy"], **copy}
 
 
@@ -440,6 +607,19 @@ def reset_counts() -> None:
     cost_volume.launches = 0
     dense_image_warp.launches = 0
     dynamic_copy.launches = 0
+    cost_volume_backward.launches = 0
+    warp_backward.launches = 0
+
+
+
+def launch_counts() -> dict:
+    """Every kernel's launch count."""
+    from unsupervised_detection_tpu_torch.ops.dynamic_copy import dynamic_copy
+
+    return {"cost_volume": cost_volume.launches, "warp": dense_image_warp.launches,
+            "dynamic_copy": dynamic_copy.launches,
+            "cost_volume_backward": cost_volume_backward.launches,
+            "warp_backward": warp_backward.launches}
 
 
 def expect_counts(what: str, forwards: int = 1) -> tuple[int, int]:
@@ -619,9 +799,11 @@ def phase_eval(report: dict) -> None:
         log(f"eval: {dn} card: {steps} batches, launches cost_volume={counts[0]} "
             f"warp={counts[1]} dynamic_copy={counts[2]}; frames {res['frames']} dataset IoU "
             f"{res['dataset_iou']} MAE {res['dataset_mae']} categories {res['category_iou']}")
-        if counts != (5 * steps, 4 * steps, 0):
+        backward = [launch_counts()[k] for k in BACKWARD_KERNELS]
+        if counts != (5 * steps, 4 * steps, 0) or backward != [0, 0]:
             raise AssertionError(f"eval {dn}: expected {5 * steps} cost-volume, {4 * steps} "
-                                 f"warp and 0 tile-copy launches, got {counts}")
+                                 f"warp, 0 tile-copy and 0 backward launches, got {counts} "
+                                 f"and {backward}")
         if res["frames"] != steps * BATCH:
             raise AssertionError(f"eval {dn}: {res['frames']} frames, expected {steps * BATCH}")
         results[dn] = res
@@ -878,9 +1060,11 @@ def train_throughput(weights: dict, report: dict) -> dict:
         counts = (cost_volume.launches, dense_image_warp.launches, dynamic_copy.launches)
         log(f"train: {dn} batch {TRAIN_BATCH}, 8 sub-steps: launches cost_volume={counts[0]} "
             f"warp={counts[1]} dynamic_copy={counts[2]}")
-        if counts != (40, 32, 0):
-            raise AssertionError(f"train {dn}: expected 40 cost-volume, 32 warp and 0 "
-                                 f"tile-copy launches in 8 sub-steps, got {counts}")
+        backward = [launch_counts()[k] for k in BACKWARD_KERNELS]
+        if counts != (40, 32, 0) or backward != [0, 0]:
+            raise AssertionError(f"train {dn}: expected 40 cost-volume, 32 warp, 0 "
+                                 f"tile-copy and 0 backward launches in 8 sub-steps, got "
+                                 f"{counts} and {backward}")
         if dn == "float32":
             report["launches_train"] = dict(zip(("cost_volume", "warp", "dynamic_copy"),
                                                 counts))
@@ -912,44 +1096,64 @@ def train_throughput(weights: dict, report: dict) -> dict:
         log(f"train: {dn} kernels' device ms per sub-step "
             f"{json.dumps(row['kernel_device_ms_per_sub_step'])}")
         log(f"train: {dn} last losses {json.dumps(row['last_losses'])}")
-        for name, err in check_step_kernels(one, dn).items():
+        for name, err in check_step_kernels(one, f"train sub-step {dn}").items():
             report[name]["max_abs_err"] = max(report[name]["max_abs_err"], err)
         out[dn] = row
     return out
 
 
-def check_step_kernels(step, dn: str) -> dict:
+def check_step_kernels(step, label: str, backward: bool = False) -> dict:
     """Each kernel's wrapper against its plain version on the very inputs
-    PWC hands it in one training sub-step (`step()`), with the limits of
-    check_kernels; returns max abs err by kernel."""
+    one step (`step()`) hands it, with the limits of check_kernels and
+    check_backward_kernels: the recorded calls of PWC's cost volume (5) and
+    warp (4) and of both backward wrappers (5 and 4 with `backward`, else
+    none); returns max abs err by kernel."""
     from unsupervised_detection_tpu_torch.models import pwcnet
+    from unsupervised_detection_tpu_torch.ops import cost_volume as cv_mod
+    from unsupervised_detection_tpu_torch.ops import warp as warp_mod
 
+    kernels = {"cost_volume": (pwcnet, "cost_volume", cost_volume, cost_volume_plain),
+               "warp": (pwcnet, "dense_image_warp", dense_image_warp, warp_plain),
+               "cost_volume_backward": (cv_mod, "cost_volume_backward", cost_volume_backward,
+                                        cost_volume_backward_plain),
+               "warp_backward": (warp_mod, "warp_backward", warp_backward, warp_backward_plain)}
     calls = []
-    saved = pwcnet.cost_volume, pwcnet.dense_image_warp
 
     def recorder(name, fn):
         def call(*args):
-            calls.append((name, args))
+            calls.append((name, [a.detach() if torch.is_tensor(a) else a for a in args]))
             return fn(*args)
+        # a backward wrapper counts its launches through its module's name,
+        # which now names the recorder: keep the count on it meanwhile
+        call.launches = fn.launches
         return call
 
-    pwcnet.cost_volume = recorder("cost_volume", saved[0])
-    pwcnet.dense_image_warp = recorder("warp", saved[1])
+    recorders = {name: recorder(name, fn) for name, (_, _, fn, _) in kernels.items()}
+    for name, (module, attr, _, _) in kernels.items():
+        setattr(module, attr, recorders[name])
     try:
         step()
     finally:
-        pwcnet.cost_volume, pwcnet.dense_image_warp = saved
-    if [n for n, _ in calls].count("cost_volume") != 5 or len(calls) != 9:
-        raise AssertionError(f"train {dn}: recorded {[n for n, _ in calls]} in one sub-step")
-    err = {"cost_volume": 0.0, "warp": 0.0}
+        for name, (module, attr, fn, _) in kernels.items():
+            setattr(module, attr, fn)
+            if module is not pwcnet:
+                fn.launches = recorders[name].launches
+    names = [n for n, _ in calls]
+    want = {"cost_volume": 5, "warp": 4, "cost_volume_backward": 5 * backward,
+            "warp_backward": 4 * backward}
+    if {n: names.count(n) for n in want} != want:
+        raise AssertionError(f"{label}: recorded {names} in one step")
+    err = dict.fromkeys(want, 0.0)
     for name, args in calls:
-        kernel, plain = ((cost_volume, cost_volume_plain) if name == "cost_volume"
-                         else (dense_image_warp, warp_plain))
-        want = plain(*args)
-        shape = tuple(args[0].shape)
-        err[name] = max(err[name], check(
-            f"{name} train sub-step {dtype_name(args[0].dtype)} {shape}", kernel(*args), want,
-            tolerance(name, args[0].dtype, want)))
+        _, _, kernel, plain = kernels[name]
+        dtype = args[0].dtype
+        what = f"{name} {label} {dtype_name(dtype)} {tuple(args[0].shape)}"
+        with torch.no_grad():
+            got, ref = kernel(*args), plain(*args)
+        if name in BACKWARD_KERNELS:
+            err[name] = max(err[name], check_backward(what, got, ref, dtype))
+        else:
+            err[name] = max(err[name], check(what, got, ref, tolerance(name, dtype, ref)))
     return err
 
 
@@ -1056,6 +1260,312 @@ def phase_train(report: dict) -> None:
     train_cli(report)
 
 
+def pretrain_weights(seed: int = 10) -> dict:
+    """Seeded random PWC weights at r=4 (flax he-normal / glorot layout,
+    numpy), as a PWCNet state dict."""
+    from unsupervised_detection_tpu_torch.convert import pwc_state_dict, random_jax_params
+    from unsupervised_detection_tpu_torch.models import GeneratorNet, PWCNet
+
+    _, _, pwc_p = random_jax_params(
+        GeneratorNet(), PWCNet(search_range=PRETRAIN_SIZES["pwc_search_range"]), seed)
+    return pwc_state_dict(pwc_p)
+
+
+def all_finite(net) -> bool:
+    return all(bool(torch.isfinite(p).all()) for p in net.parameters())
+
+
+def pretrain_run(cfg: Config, weights: dict, dn: str) -> dict:
+    """`pretrain_pwc` itself for 1 + PRETRAIN_TIMED steps at batch 16, full
+    width, on synthetic scenes (max_mag 12): the batch hook records a CUDA
+    event as each step begins, so step i's ms is event i+1 - event i; counts
+    from 0 just before, read just after; samples/s on the host clock over
+    the timed steps."""
+    from unsupervised_detection_tpu_torch.train.pretrain_pwc import (pretrain_pwc,
+                                                                     synthetic_flow_batch)
+
+    events, starts = [], []
+
+    def timed_batches(rng, batch, h, w):
+        if len(events) == 1:
+            torch.cuda.synchronize()                   # the warm-up step is done
+        starts.append(time.perf_counter())
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append(ev)
+        return synthetic_flow_batch(rng, batch, h, w, max_mag=12.0, device="cuda")
+
+    steps = 1 + PRETRAIN_TIMED
+    reset_counts()
+    net, epe = pretrain_pwc(cfg.replace(compute_dtype=dn), steps, verbose=False,
+                            batch_fn=timed_batches, params=weights, device="cuda")
+    end = torch.cuda.Event(enable_timing=True)
+    end.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - starts[1]
+    counts = launch_counts()
+    want = {"cost_volume": 5 * steps, "warp": 5 * steps, "dynamic_copy": 0,
+            "cost_volume_backward": 5 * steps, "warp_backward": 4 * steps}
+    log(f"pretrain: {dn} pretrain_pwc {steps} steps batch {PRETRAIN_BATCH}: launches "
+        f"{json.dumps(counts)} (expected {json.dumps(want)})")
+    if counts != want:
+        raise AssertionError(f"pretrain {dn}: launches {counts}, expected {want}")
+    if not (math.isfinite(epe) and all_finite(net)):
+        raise AssertionError(f"pretrain {dn}: final EPE {epe} or weights not finite")
+    events.append(end)
+    step_ms = [a.elapsed_time(b) for a, b in zip(events[1:-1], events[2:])]
+    row = {"ms_per_step": sum(step_ms) / len(step_ms), "ms_per_step_min": min(step_ms),
+           "samples_per_s": PRETRAIN_BATCH * PRETRAIN_TIMED / wall, "final_epe": epe,
+           "launches": counts}
+    log(f"pretrain: {dn} batch {PRETRAIN_BATCH}: {row['ms_per_step']:.3f} ms per step "
+        f"(CUDA events, mean of {PRETRAIN_TIMED} after a warm-up step; min "
+        f"{row['ms_per_step_min']:.3f}), {row['samples_per_s']:.2f} samples/s (host clock), "
+        f"final EPE {epe:.4f} px [{card_line()}]")
+    return row
+
+
+def pretrain_trainer(cfg: Config, weights: dict, dn: str, device: str = "cuda", steps=1):
+    from unsupervised_detection_tpu_torch.train.pretrain_pwc import PWCPretrainer
+
+    return PWCPretrainer(cfg.replace(compute_dtype=dn), steps, params=weights, device=device)
+
+
+def scene(batch: int, seed: int, device: str = "cuda", max_mag: float = 12.0):
+    import numpy as np
+
+    from unsupervised_detection_tpu_torch.train.pretrain_pwc import synthetic_flow_batch
+
+    return synthetic_flow_batch(np.random.RandomState(seed), batch,
+                                PRETRAIN_SIZES["reader_height"],
+                                PRETRAIN_SIZES["reader_width"], max_mag=max_mag, device=device)
+
+
+def pretrain_profile_and_check(cfg: Config, weights: dict, dn: str, report: dict) -> dict:
+    """The first step's loss and EPE (no update) from the weights on seed
+    20's batch; then one profiled step (busy share, top kernels) and one
+    step whose kernel calls are held to their plain versions."""
+    trainer = pretrain_trainer(cfg, weights, dn)
+    batch = scene(PRETRAIN_BATCH, seed=20)
+    loss, epe, _, _ = trainer.loss_and_grads(*batch)
+    first = {"loss": float(loss), "epe": float(epe)}
+    trainer.step(*batch)                               # warm
+    torch.cuda.synchronize()
+    wall_us, busy_us, per_kernel = profile_window(lambda: trainer.step(*batch), 1)
+    log(f"pretrain: {dn} profiled step: device busy {busy_us / 1e3:.3f} of "
+        f"{wall_us / 1e3:.3f} ms ({100.0 * busy_us / wall_us:.1f}%)")
+    for us, n, name in sorted(((us, n, k) for k, (us, n) in per_kernel.items()),
+                              reverse=True)[:8]:
+        log(f"pretrain: {dn} profile {100.0 * us / busy_us:5.1f}% {us / 1e3:8.3f} ms {n:4d}x "
+            f"{name[:80]}")
+    kernel_ms = {name: sum(us for kn, (us, _) in per_kernel.items() if KERNEL_SYMBOLS[name] in kn)
+                 / 1e3 for name in ("cost_volume", "warp") + BACKWARD_KERNELS}
+    log(f"pretrain: {dn} kernels' device ms in the profiled step {json.dumps(kernel_ms)}")
+    for name, err in check_step_kernels(lambda: trainer.step(*batch), f"pretrain step {dn}",
+                                        backward=True).items():
+        report[name]["max_abs_err"] = max(report[name]["max_abs_err"], err)
+    return {"first": first, "busy_share": busy_us / wall_us, "kernel_device_ms": kernel_ms}
+
+
+def pretrain_parity(cfg: Config, weights: dict) -> dict:
+    """One pretrain_pwc step's loss, EPE and gradients at batch 2, float32,
+    card against CPU from the same weights and batch."""
+    batch = scene(PRETRAIN_PARITY_BATCH, seed=21, device="cpu")
+    runs = {}
+    for device in ("cuda", "cpu"):
+        trainer = pretrain_trainer(cfg, weights, "float32", device)
+        loss, epe, _, grads = trainer.loss_and_grads(*(t.to(device) for t in batch))
+        names = [k for k, _ in trainer.net.named_parameters()]
+        runs[device] = (float(loss), float(epe), {k: g.cpu() for k, g in zip(names, grads)})
+    (l_c, e_c, g_c), (l_p, e_p, g_p) = runs["cuda"], runs["cpu"]
+    g_net = max(g.abs().max().item() for g in g_p.values())
+    gaps = {k: (g_c[k] - g_p[k]).abs().max().item() for k in g_p}
+    worst = max(gaps, key=gaps.get)
+    own = max(gaps, key=lambda k: gaps[k] / max(g_p[k].abs().max().item(), 1e-30))
+    out = {"loss_rel": abs(l_c - l_p) / abs(l_p), "epe_rel": abs(e_c - e_p) / abs(e_p),
+           "grad_gap": gaps[worst] / g_net, "grad_gap_of": worst,
+           "grad_gap_own": gaps[own] / max(g_p[own].abs().max().item(), 1e-30),
+           "grad_gap_own_of": own}
+    log(f"pretrain: card vs CPU, batch {PRETRAIN_PARITY_BATCH} float32: loss {l_c} / {l_p}, "
+        f"EPE {e_c} / {e_p}; {json.dumps(out)} (tol loss/EPE {PRETRAIN_LOSS_RTOL} relative, "
+        f"gradients {PRETRAIN_GRAD_REL} of the net's largest {g_net})")
+    if not (out["loss_rel"] <= PRETRAIN_LOSS_RTOL and out["epe_rel"] <= PRETRAIN_LOSS_RTOL
+            and out["grad_gap"] <= PRETRAIN_GRAD_REL):
+        raise AssertionError(f"pretrain: card differs from the CPU: {out}")
+    return out
+
+
+def pretrain_learning(cfg: Config, weights: dict, dn: str) -> dict:
+    """LEARN_STEPS pretrain steps at batch 4 on easy scenes (max_mag 3),
+    twice from the same weights:
+
+    * fresh scenes at every step: the EPE curve, and beside it the initial
+      net's EPE on the same scenes (each scene's own flow magnitude sets
+      most of its EPE, so the curve alone swings with the draw), printed;
+    * one fixed scene at every step: the EPE curve, whose last 5 steps'
+      mean must be under the first step's (held).
+    """
+    import numpy as np
+
+    from unsupervised_detection_tpu_torch.train.pretrain_pwc import pwc_loss, synthetic_flow_batch
+
+    def easy(rng):
+        return synthetic_flow_batch(rng, LEARN_BATCH, cfg.reader_height, cfg.reader_width,
+                                    max_mag=3.0, device="cuda")
+
+    lcfg = cfg.replace(batch_size=LEARN_BATCH)
+    fixed_net = pretrain_trainer(lcfg, weights, dn).net
+    trainer = pretrain_trainer(lcfg, weights, dn, steps=LEARN_STEPS)
+    rng = np.random.RandomState(30)
+    fresh, initial = [], []
+    for _ in range(LEARN_STEPS):
+        batch = easy(rng)
+        with torch.no_grad():
+            initial.append(float(pwc_loss(fixed_net, *batch)[1]))
+        fresh.append(float(trainer.step(*batch)[1]))
+    trainer = pretrain_trainer(lcfg, weights, dn, steps=LEARN_STEPS)
+    batch = easy(np.random.RandomState(31))
+    fixed = [float(trainer.step(*batch)[1]) for _ in range(LEARN_STEPS)]
+    out = {"fresh": fresh, "fresh_initial_net": initial, "fixed": fixed}
+    for name, curve in out.items():
+        log(f"pretrain: {dn} learning, batch {LEARN_BATCH}, max_mag 3, {name}: EPE "
+            f"{' '.join(f'{e:.4f}' for e in curve)}")
+    last5 = {k: sum(v[-5:]) / 5 for k, v in out.items()}
+    log(f"pretrain: {dn} learning: last 5 mean / first: fresh {last5['fresh'] / fresh[0]:.4f}; "
+        f"fresh against the initial net on the same scenes {last5['fresh'] / last5['fresh_initial_net']:.4f}; "
+        f"fixed {last5['fixed'] / fixed[0]:.4f} (held: < 1)")
+    if not (all(math.isfinite(e) for e in fixed + fresh) and last5["fixed"] < fixed[0]):
+        raise AssertionError(f"pretrain {dn}: EPE on a fixed scene did not fall: {fixed}")
+    return out
+
+
+def recover_frames(batches: int, seed: int = 40):
+    """Host-mode batches of float32 frame pairs at the reader resolution,
+    made in numpy: a textured square moving over a panning textured
+    background, as the pipeline hands them to DeviceFeeder."""
+    import numpy as np
+
+    rs = np.random.RandomState(seed)
+    h, w = PRETRAIN_SIZES["reader_height"], PRETRAIN_SIZES["reader_width"]
+    side = min(h, w) // 4
+    bg = rs.rand(PRETRAIN_BATCH, h + 16, w + 16, 3).astype(np.float32) - 0.5
+    fg = rs.rand(PRETRAIN_BATCH, side, side, 3).astype(np.float32) - 0.5
+    for i in range(batches):
+        pair = []
+        for t in (i, i + 1):
+            img = bg[:, 2 * t % 16:2 * t % 16 + h, 3 * t % 16:3 * t % 16 + w].copy()
+            y, x = h // 4 + 2 * t, w // 3 + 3 * t
+            img[:, y:y + side, x:x + side] = fg
+            pair.append(img)
+        yield {"img1": pair[0], "img2": pair[1]}
+
+
+def pretrain_recover_run(dn: str, steps: int = 4) -> dict:
+    """pretrain_recover at reader 384x640 / working 192x384, batch 16, on
+    numpy frames: ms per step (CUDA events recorded as each batch is
+    drawn, the first step a warm-up) and launches (5 / 4 forward, 0
+    backward per step)."""
+    from unsupervised_detection_tpu_torch.train.pretrain import pretrain_recover
+
+    cfg = Config(batch_size=PRETRAIN_BATCH, img_height=192, img_width=384, **PRETRAIN_SIZES,
+                 compute_dtype=dn, allow_random_flow=True)
+    events = []
+
+    def batches():
+        for b in recover_frames(steps):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            events.append(ev)
+            yield b
+
+    reset_counts()
+    net = pretrain_recover(cfg, steps, verbose=False, device="cuda", batches=batches())
+    end = torch.cuda.Event(enable_timing=True)
+    end.record()
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    want = {"cost_volume": 5 * steps, "warp": 4 * steps, "dynamic_copy": 0,
+            "cost_volume_backward": 0, "warp_backward": 0}
+    events.append(end)
+    step_ms = [a.elapsed_time(b) for a, b in zip(events[1:-1], events[2:])]
+    row = {"ms_per_step": sum(step_ms) / len(step_ms), "launches": counts}
+    log(f"pretrain: recover {dn} batch {PRETRAIN_BATCH}, {steps} steps: "
+        f"{row['ms_per_step']:.3f} ms per step (CUDA events, mean of {steps - 1} after a "
+        f"warm-up step), launches {json.dumps(counts)} [{card_line()}]")
+    if counts != want or not all_finite(net):
+        raise AssertionError(f"pretrain_recover {dn}: launches {counts} (expected {want}) "
+                             "or weights not finite")
+    return row
+
+
+def pretrain_chain(report: dict) -> None:
+    """pretrain_flow (2 steps) -> pretrain_recover (2 steps, --flow_ckpt) ->
+    the train CLI (--flow_ckpt, --recover_ckpt, one epoch) -> test_generator,
+    through each CLI's main(argv), on a JPEG tree written with cv2."""
+    import importlib
+    import tempfile
+
+    from unsupervised_detection_tpu_torch import pretrain_flow, pretrain_recover, test_generator
+
+    train_main = importlib.import_module("unsupervised_detection_tpu_torch.train.__main__").main
+    with tempfile.TemporaryDirectory() as tmp:
+        root = write_davis_tree(os.path.join(tmp, "davis"))
+        dirs = {k: os.path.join(tmp, k) for k in ("pwc", "rec", "game")}
+        common = [f"--batch_size={PRETRAIN_BATCH}", "--num_threads=4"]
+        t0 = time.perf_counter()
+        reset_counts()
+        run_captured(pretrain_flow.main, common + [f"--checkpoint_dir={dirs['pwc']}",
+                                                   "--pretrain_steps=2"])
+        flow_counts = launch_counts()
+        flow_ckpt = os.path.join(dirs["pwc"], "pwc-final")
+        run_captured(pretrain_recover.main, common + [
+            f"--root_dir={root}", f"--flow_ckpt={flow_ckpt}", f"--checkpoint_dir={dirs['rec']}",
+            "--pretrain_steps=2"])
+        rec_ckpt = os.path.join(dirs["rec"], "recover-final")
+        state, text = run_captured(train_main, common + [
+            f"--root_dir={root}", f"--checkpoint_dir={dirs['game']}", f"--flow_ckpt={flow_ckpt}",
+            f"--recover_ckpt={rec_ckpt}", f"--num_samples_train={4 * PRETRAIN_BATCH}",
+            "--max_epochs=1", "--summary_freq=1", "--save_freq=1"])
+        if ("Flow net loaded from" not in text or "Recover net loaded from previous ckpt"
+                not in text or "Training completed successfully" not in text):
+            raise AssertionError(f"pretrain chain: train CLI output ends {text[-300:]!r}")
+        res, text = run_captured(test_generator.main, common + [
+            f"--root_dir={root}", f"--ckpt_file={os.path.join(dirs['game'], 'model.best')}"])
+        saves = {k: sorted(os.listdir(d)) for k, d in dirs.items()}
+        log(f"pretrain: chain {time.perf_counter() - t0:.2f} s, saves {saves}, pretrain_flow "
+            f"launches {json.dumps(flow_counts)}, dataset IoU {res['dataset_iou']}")
+        if (saves != {"pwc": ["pwc-final"], "rec": ["recover-final"],
+                      "game": ["model-1", "model.best"]}
+                or flow_counts["cost_volume_backward"] != 10
+                or "The Average over the dataset: IoU is" not in text):
+            raise AssertionError(f"pretrain chain: saves {saves}, counts {flow_counts}")
+    report["pretrain_chain"] = {"saves": saves, "dataset_iou": res["dataset_iou"]}
+
+
+def phase_pretrain(report: dict) -> None:
+    weights = pretrain_weights()
+    cfg = Config(batch_size=PRETRAIN_BATCH, **PRETRAIN_SIZES)
+    out = {}
+    for dn in ("float32", "bfloat16"):
+        row = pretrain_run(cfg, weights, dn)
+        row.update(pretrain_profile_and_check(cfg, weights, dn, report))
+        out[dn] = row
+    report["launches_pretrain"] = out["float32"]["launches"]
+    f32, b16 = out["float32"]["first"], out["bfloat16"]["first"]
+    rel = {k: abs(b16[k] - f32[k]) / abs(f32[k]) for k in ("loss", "epe")}
+    log(f"pretrain: first step bfloat16 vs float32: {json.dumps(b16)} vs {json.dumps(f32)}, "
+        f"relative {json.dumps(rel)} (tol {PRETRAIN_BF16_RTOL})")
+    if not all(v <= PRETRAIN_BF16_RTOL for v in rel.values()):
+        raise AssertionError(f"pretrain: bfloat16 first step differs from float32: {rel}")
+    t0 = time.perf_counter()
+    out["parity"] = pretrain_parity(cfg, weights)
+    log(f"pretrain: parity {time.perf_counter() - t0:.1f} s")
+    for dn in ("float32", "bfloat16"):
+        out[dn]["learning"] = pretrain_learning(cfg, weights, dn)
+        out[dn]["recover"] = pretrain_recover_run(dn)
+    pretrain_chain(report)
+    report["pretrain"] = out
+
+
 def phase_profile(forwards: dict, images, iters: int = 3, top: int = 12) -> None:
     """Device time by kernel over `iters` of the path's forwards at batch 8
     (torch.profiler), and the device's busy share of the profiled window."""
@@ -1123,6 +1633,8 @@ def main() -> int:
             phase_eval(report)
         elif phase == "train":
             phase_train(report)
+        elif phase == "pretrain":
+            phase_pretrain(report)
         elif phase == "repro":
             phase_repro(report)
         else:
@@ -1133,11 +1645,15 @@ def main() -> int:
     kernels = []
     for name, (source, replaces) in KERNEL_SOURCES.items():
         k = report[name]
+        backward = name in BACKWARD_KERNELS
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": report["launches"][name],
-            "launches_eval": report["launches_eval"]["float32"][name],
-            "launches_train": report["launches_train"][name],
+            # a backward kernel's main path is pretraining: PWC is frozen in
+            # the forward, eval and train paths, which launch it 0 times
+            "launches": report["launches_pretrain" if backward else "launches"][name],
+            "launches_eval": 0 if backward else report["launches_eval"]["float32"][name],
+            "launches_train": 0 if backward else report["launches_train"][name],
+            "launches_pretrain": report["launches_pretrain"][name],
             "max_abs_err": k["max_abs_err"],
             "ms": k["ms"], "device_ms": k["device_ms"], "plain_ms": k["plain_ms"],
             "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],

@@ -1,7 +1,7 @@
 """The PyTorch port stands alone: it imports neither JAX nor the JAX
-package, its entry points (the train CLI among them) default to the card
-and raise without one, and its kernel wrappers take the plain version only
-for CPU tensors."""
+package, its entry points (the train and pretraining CLIs among them)
+default to the card and raise without one, and its kernel wrappers take the
+plain version only for CPU tensors."""
 
 import dataclasses
 import importlib
@@ -14,13 +14,16 @@ import pytest
 import torch
 
 from unsupervised_detection_tpu.config import Config as JaxConfig
-from unsupervised_detection_tpu_torch import Config, parse_flags
+from unsupervised_detection_tpu_torch import Config, parse_flags, pretrain_flow
+from unsupervised_detection_tpu_torch import pretrain_recover as pretrain_recover_cli
 from unsupervised_detection_tpu_torch.benchlib import build_forward
 from unsupervised_detection_tpu_torch.eval import Evaluator
 from unsupervised_detection_tpu_torch.ops.cost_volume import cost_volume
 from unsupervised_detection_tpu_torch.ops.warp import dense_image_warp
 from unsupervised_detection_tpu_torch.train.learner import AdversarialLearner
 from unsupervised_detection_tpu_torch.train.objective import AdversarialObjective
+from unsupervised_detection_tpu_torch.train.pretrain import pretrain_recover
+from unsupervised_detection_tpu_torch.train.pretrain_pwc import pretrain_pwc
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "unsupervised_detection_tpu_torch")
@@ -55,7 +58,7 @@ print(len(names))
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip().splitlines()[-1]) >= 22
+    assert int(out.stdout.strip().splitlines()[-1]) >= 40
 
 
 def test_source_scan_finds_no_jax_import():
@@ -75,6 +78,14 @@ def test_entry_points_default_to_the_card():
     train_cli = importlib.import_module("unsupervised_detection_tpu_torch.train.__main__")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train_cli.main(["--allow_random_flow", "--batch_size=1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pretrain_pwc(cfg, steps=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pretrain_recover(cfg.replace(allow_random_flow=True), steps=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pretrain_flow.main(["--pretrain_steps=1", "--batch_size=1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pretrain_recover_cli.main(["--allow_random_flow", "--pretrain_steps=1"])
 
 
 def test_wrappers_take_plain_version_only_on_cpu():

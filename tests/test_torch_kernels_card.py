@@ -1,7 +1,12 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card.
 
 Every test here needs a CUDA device (marker `cuda`) and skips without one.
-The file imports no JAX, so it also runs where only PyTorch is installed:
+The backward kernels are held to their plain backwards: float32 within
+1e-5 of each gradient's largest element (sums in other orders; the warp's
+image gradient adds with atomics in no fixed order), bfloat16 within 2^-7
+of it (both sum in float32 and round once; an atomic sum may round to the
+neighbouring bfloat16). The file imports no JAX, so it also runs where only
+PyTorch is installed:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels_card.py
 """
@@ -11,9 +16,11 @@ import pytest
 import torch
 
 from torch_parity import clamp_flow
-from unsupervised_detection_tpu_torch.ops.cost_volume import cost_volume, cost_volume_plain
+from unsupervised_detection_tpu_torch.ops.cost_volume import (
+    cost_volume, cost_volume_backward, cost_volume_backward_plain, cost_volume_plain)
 from unsupervised_detection_tpu_torch.ops.dynamic_copy import dynamic_copy, dynamic_copy_plain
-from unsupervised_detection_tpu_torch.ops.warp import dense_image_warp, warp_plain
+from unsupervised_detection_tpu_torch.ops.warp import (
+    dense_image_warp, warp_backward, warp_backward_plain, warp_plain)
 
 # PWC level-6 and level-2 shapes at batch 2 (reader 384x640), then ragged
 # ones: the 1x1 and 2x3 levels of small pyramids, batch 1, H and W off the
@@ -85,3 +92,70 @@ def test_dynamic_copy_kernel_bit_equal_to_slice(cuda_device, axis):
     torch.cuda.synchronize()
     assert dynamic_copy.launches == before + 1
     assert torch.equal(got.cpu(), want)
+
+
+def _of_largest(got, want):
+    return ((got.float() - want.float()).abs().max() / want.float().abs().max().clamp_min(1e-30)
+            ).item()
+
+
+BACKWARD_LIMIT = {torch.float32: 1e-5, torch.bfloat16: 2.0**-7}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SHAPES)
+def test_cost_volume_backward_kernel_matches_plain(cuda_device, shape):
+    rs = np.random.RandomState(3)
+    a, b = (torch.from_numpy(rs.randn(*shape).astype(np.float32)).to(cuda_device)
+            for _ in range(2))
+    for dtype in (torch.float32, torch.bfloat16):
+        for r in (2, 4):
+            x, y = a.to(dtype), b.to(dtype)
+            out = cost_volume_plain(x, y, r)
+            g = torch.randn(out.shape, device=cuda_device).to(dtype)
+            want = cost_volume_backward_plain(x, y, out, g, r)
+            before = cost_volume_backward.launches
+            got = cost_volume_backward(x, y, out, g, r)
+            torch.cuda.synchronize()
+            assert cost_volume_backward.launches == before + 1
+            for gt, wt in zip(got, want):
+                assert gt.dtype == dtype and gt.shape == wt.shape
+                assert _of_largest(gt, wt) <= BACKWARD_LIMIT[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flow_kind", ["clamp", "zero"])
+@pytest.mark.parametrize("shape", WARP_SHAPES)
+def test_warp_backward_kernel_matches_plain(cuda_device, shape, flow_kind):
+    rs = np.random.RandomState(4)
+    image = torch.from_numpy(rs.randn(*shape).astype(np.float32)).to(cuda_device)
+    flow = (torch.zeros((*shape[:3], 2)) if flow_kind == "zero"
+            else torch.from_numpy(clamp_flow(rs, *shape[:3]))).to(cuda_device)
+    g = torch.from_numpy(rs.randn(*shape).astype(np.float32)).to(cuda_device)
+    for dtype in (torch.float32, torch.bfloat16):
+        im, fl, gg = image.to(dtype), flow.to(dtype), g.to(dtype)
+        want = warp_backward_plain(im, fl, gg)
+        before = warp_backward.launches
+        got = warp_backward(im, fl, gg)
+        torch.cuda.synchronize()
+        assert warp_backward.launches == before + 1
+        for gt, wt in zip(got, want):
+            assert gt.dtype == dtype and gt.shape == wt.shape
+            assert _of_largest(gt, wt) <= BACKWARD_LIMIT[dtype]
+
+
+@pytest.mark.cuda
+def test_autograd_on_the_card_goes_through_the_kernels(cuda_device):
+    rs = np.random.RandomState(5)
+    image = torch.from_numpy(rs.randn(2, 12, 20, 32).astype(np.float32)).to(cuda_device)
+    flow = torch.from_numpy(clamp_flow(rs, 2, 12, 20)).to(cuda_device)
+    image.requires_grad_()
+    flow.requires_grad_()
+    counts = (cost_volume_backward.launches, warp_backward.launches)
+    out = cost_volume(dense_image_warp(image, flow), image, 2)
+    assert out.grad_fn is not None
+    out.square().sum().backward()
+    torch.cuda.synchronize()
+    assert (cost_volume_backward.launches, warp_backward.launches) == (counts[0] + 1,
+                                                                       counts[1] + 1)
+    assert bool(torch.isfinite(image.grad).all()) and bool(torch.isfinite(flow.grad).all())

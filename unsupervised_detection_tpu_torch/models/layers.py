@@ -70,6 +70,20 @@ def nn2_subpixel_conv3(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor
     return z.reshape(b, c, 2 * h, 2 * w)
 
 
+# stddev of a standard normal truncated to [-2, 2] (flax's variance_scaling)
+TRUNCATED_NORMAL_STD = 0.87962566103423978
+
+
+def he_normal_(weight: torch.Tensor) -> torch.Tensor:
+    """flax `he_normal` on an OIHW kernel, in place: a normal truncated at
+    +-2 of its scale and rescaled so the variance is 2 / fan_in (fan_in =
+    I*kh*kw), as flax's variance_scaling(2, "fan_in", "truncated_normal")
+    draws it. The same distribution, not the same draws."""
+    fan_in = weight.shape[1] * weight.shape[2] * weight.shape[3]
+    std = (2.0 / fan_in) ** 0.5 / TRUNCATED_NORMAL_STD
+    return nn.init.trunc_normal_(weight, 0.0, std, -2.0 * std, 2.0 * std)
+
+
 class PWCConv(nn.Module):
     """Conv + LeakyReLU(0.1), he_normal init (counterpart of `PWCConv`,
     models/layers.py:316-340). The JAX module's channel-parts input
@@ -82,7 +96,7 @@ class PWCConv(nn.Module):
         self.stride, self.rate, self.activation = stride, rate, activation
         self.weight = nn.Parameter(torch.empty(features, in_ch, kernel_size, kernel_size))
         self.bias = nn.Parameter(torch.zeros(features))
-        nn.init.kaiming_normal_(self.weight, nonlinearity="relu")
+        he_normal_(self.weight)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = conv2d_same(x, self.weight, self.bias, self.stride, self.rate)

@@ -10,7 +10,8 @@ model_pwcnet.py:8-19, 581-649).
 
 Per forward the cost volume runs once per level (5 launches, L6..L2) and
 the warp once per level below the top (4 launches, L5..L2); both go
-through the CUDA kernels on a CUDA device. Images and flows are NHWC at
+through the CUDA kernels on a CUDA device, and a backward pass through PWC
+(pretraining) launches their backward kernels as often. Images and flows are NHWC at
 the interface; inside, activations are NCHW views of channels-last memory,
 so `permute(0, 2, 3, 1)` hands the kernels NHWC-contiguous tensors.
 """
@@ -122,7 +123,10 @@ class PWCNet(nn.Module):
                 self.add_module(f"up_feat{lvl}", ConvTranspose2D(est.out_ch, 2, 4, 2))
 
     def forward(self, img1: torch.Tensor, img2: torch.Tensor,
-                upsample_output: bool = True) -> torch.Tensor:
+                upsample_output: bool = True, return_pyramid: bool = False):
+        """Flow of the pair, float32 NHWC. With `return_pyramid`, also the
+        per-level flows, coarse to fine (L6..L2), NHWC in the compute dtype,
+        as `(flow, flow_pyr)`: what pretraining's multiscale EPE reads."""
         b = img1.shape[0]
         both = torch.cat([img1 + 0.5, img2 + 0.5], dim=0).to(self.dtype)
         feats = self.featpyr(_nchw(both))
@@ -130,6 +134,7 @@ class PWCNet(nn.Module):
         c2 = [None] + [f[b:] for f in feats]
 
         up_flow = up_feat = None
+        flow_pyr = []
         for lvl in range(self.pyr_lvls, self.flow_pred_lvl - 1, -1):
             if lvl == self.pyr_lvls:
                 x = _nchw(cost_volume(_nhwc(c1[lvl]), _nhwc(c2[lvl]), self.search_range))
@@ -140,15 +145,18 @@ class PWCNet(nn.Module):
                 x = torch.cat([corr, c1[lvl], up_flow, up_feat], dim=1)
             feat, flow = getattr(self, f"estimator{lvl}")(x)
             flow = getattr(self, f"ctxt{lvl}")(feat, flow)
+            flow_pyr.append(flow)
             if lvl != self.flow_pred_lvl:
                 up_flow = getattr(self, f"up_flow{lvl}")(flow)
                 up_feat = getattr(self, f"up_feat{lvl}")(feat)
 
         flow = _nhwc(flow.float())
-        if not upsample_output:
-            # quarter resolution; the caller fuses the x4 upsample into its
-            # own resize and applies the x4 magnitude scale
-            return flow
-        scaler = 2**self.flow_pred_lvl
-        size = (flow.shape[1] * scaler, flow.shape[2] * scaler)
-        return resize_bilinear(flow, size) * scaler
+        if upsample_output:
+            scaler = 2**self.flow_pred_lvl
+            size = (flow.shape[1] * scaler, flow.shape[2] * scaler)
+            flow = resize_bilinear(flow, size) * scaler
+        # else quarter resolution: the caller fuses the x4 upsample into its
+        # own resize and applies the x4 magnitude scale
+        if return_pyramid:
+            return flow, [_nhwc(f) for f in flow_pyr]
+        return flow

@@ -1,2 +1,2 @@
-"""Tensor operations of the port: resize, flow, metrics, and the two CUDA
-kernels' wrappers (cost volume, warp)."""
+"""Tensor operations of the port: resize, flow, metrics, and the CUDA
+kernels' wrappers (cost volume and warp, forward and backward)."""

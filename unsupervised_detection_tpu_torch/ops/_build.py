@@ -86,6 +86,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.udt_cost_volume.restype = _I
     lib.udt_warp.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I, _P]
     lib.udt_warp.restype = _I
+    lib.udt_cost_volume_backward.argtypes = [_P] * 6 + [_I] * 6 + [_P]
+    lib.udt_cost_volume_backward.restype = _I
+    lib.udt_warp_backward.argtypes = [_P] * 5 + [_I] * 5 + [_P]
+    lib.udt_warp_backward.restype = _I
     lib.udt_dynamic_copy.argtypes = [_P, _P, _P, _I, _I, _I, _I, _P]
     lib.udt_dynamic_copy.restype = _I
     lib.udt_error_string.argtypes = [_I]

@@ -237,6 +237,15 @@ def restore_params_scope(path: str, net: torch.nn.Module, attr: str) -> None:
     net.load_state_dict(to_state_dict(trees[attr]))
 
 
+def save_scope(checkpoint_dir: str, name: str, net: torch.nn.Module, attr: str) -> str:
+    """Write `net`'s parameters as the scope save `<checkpoint_dir>/<name>`,
+    one tree `attr` ("pwc_params" or "rec_params"): what the pretraining
+    stages write and `--flow_ckpt` / `--recover_ckpt` read. A PWC save
+    records its search range."""
+    trees = {attr: flax_trees(net, net.state_dict())["params"]}
+    return save_trees(os.path.abspath(os.path.join(checkpoint_dir, name)), trees)
+
+
 def latest_checkpoint(checkpoint_dir: str) -> Optional[str]:
     """The `model-<epoch>` save of the highest epoch (reference resume
     logic, adversarial_learner.py:345-353), or None."""
