@@ -18,9 +18,11 @@ Phases, in order, each printed with its wall seconds:
              and bfloat16, with the stated tolerance; both again at the train
              phase's level shapes (batch 16, r=2); the two backward kernels
              against their plain backwards at the five levels at batch 16,
-             r=4 and r=2, and at the ragged shapes, the warp's with
-             clamp-driving and zero flows. Then each kernel's time at batch
-             8 (the backward kernels' at batch 16, r=4): CUDA events over 20 back-to-back calls (`ms`, host
+             r=4 and r=2, and at the ragged shapes (the cost volume's must
+             also give the same bits in two calls and slope 1 at exactly
+             zero costs), the warp's with clamp-driving, zero and far
+             (40-60 px) flows. Then each kernel's time at batch 8 (the
+             backward kernels' at batch 16, r=4): CUDA events over 20 back-to-back calls (`ms`, host
              overhead included) and the kernel's own device time per launch
              from torch.profiler over 20 launches (`device_ms`), beside its
              bound, the share of the bound, its plain version's time and a
@@ -88,11 +90,14 @@ Phases, in order, each printed with its wall seconds:
 * profile -- device time by kernel over three of the path's forwards in
              each dtype (torch.profiler), and the device's busy share.
 
-`--times` runs only the cost volume's and the warp's timing at batch 8
-(r=4), per level and summed over one forward, for the package under `--root`
-(default: this checkout). Given a `git archive` export of another commit as
-`--root`, it times that commit's kernels with this script's timer, so two
-commits compare in one call on one card.
+`--times` runs only the kernels' timing, for the package under `--root`
+(default: this checkout): the cost volume's and the warp's at batch 8
+(r=4), summed over one forward, and both backward kernels at the pretrain
+phase's batch 16 (r=4), per level and summed over one pretraining step;
+its JSON line holds them all, and ptxas' registers and spills are printed
+when it builds. Given a `git archive` export of another
+commit as `--root`, it times that commit's kernels with this script's
+timer, so two commits compare in one call on one card.
 
 Any failed check raises, and the script exits non-zero; it also exits
 non-zero, printing no result, when no CUDA device is available. The line
@@ -150,6 +155,13 @@ RAGGED_COST = ((1, 1, 1, 196), (1, 2, 3, 96), (1, 6, 10, 196), (1, 12, 20, 128),
                (1, 13, 70, 64), (3, 7, 11, 33), (2, 5, 9, 98), (1, 24, 40, 36))
 RAGGED_WARP = ((1, 2, 2, 1), (1, 2, 3, 96), (1, 6, 10, 196), (3, 7, 11, 33),
                (1, 12, 20, 1), (1, 13, 70, 64), (2, 5, 9, 12))
+# The backward kernels besides those: the cost volume's tiles rows, pixels
+# and chunks of up to 8 channel quads, so H and W off both tiles, C one
+# quad past a chunk (36), one channel past a quad (33) and under a quad
+# (3); the warp's takes 4-channel quads, so C % 4 != 0 above 4 (6) and a
+# quad count that is not a power of two (24: 6 quads)
+RAGGED_COST_BACKWARD = RAGGED_COST + ((2, 11, 37, 36), (1, 9, 23, 3), (1, 17, 45, 33))
+RAGGED_WARP_BACKWARD = RAGGED_WARP + ((2, 7, 9, 6), (1, 12, 20, 24))
 TIMED_ITERS = 20
 # H100 SXM peaks (NVIDIA data sheet, dense): memory 3.35 TB/s; float32 outside
 # the tensor cores 67 TFLOP/s; bfloat16 989 TFLOP/s.
@@ -417,31 +429,59 @@ def check_backward(name: str, got, want, dtype) -> float:
     return err
 
 
+def far_flow(gen, b, h, w, dtype):
+    """Flow of 40 to 60 pixels either way on each axis: taps far from their
+    pixel, beyond any window a block could keep in shared memory."""
+    u = torch.rand((b, h, w, 2), generator=gen, device="cuda")
+    sign = torch.where(torch.rand((b, h, w, 2), generator=gen, device="cuda") < 0.5, -1.0, 1.0)
+    return ((40.0 + 20.0 * u) * sign).to(dtype)
+
+
 def check_backward_kernels() -> dict:
     """Both backward kernels against their plain backwards: the five PWC
     level shapes at the pretrain phase's batch 16, r=4 and r=2, the ragged
-    shapes, clamp-driving and zero flows for the warp, float32 and
-    bfloat16; returns max abs err by kernel."""
+    shapes, clamp-driving, zero and far (40-60 px) flows for the warp's,
+    float32 and bfloat16; the cost volume's at exactly zero costs (slope 1)
+    and for the same bits in two calls; returns max abs err by kernel."""
     gen = torch.Generator(device="cuda").manual_seed(3)
     err = dict.fromkeys(BACKWARD_KERNELS, 0.0)
     level_shapes = [(f"pretrain L{lvl}", (PRETRAIN_BATCH, h, w, c))
                     for lvl, (h, w, c) in LEVELS.items()]
     for dtype in DTYPES:
         dn = dtype_name(dtype)
-        for tag, shape in level_shapes + [("ragged", s) for s in RAGGED_COST]:
+        for tag, shape in level_shapes + [("ragged", s) for s in RAGGED_COST_BACKWARD]:
             c1, wp = randn(gen, shape, dtype), randn(gen, shape, dtype)
             for r in (4, 2):
                 out = cost_volume(c1, wp, r)
                 g = randn(gen, out.shape, dtype)
+                first = cost_volume_backward(c1, wp, out, g, r)
                 err["cost_volume_backward"] = max(err["cost_volume_backward"], check_backward(
-                    f"cost_volume_backward {tag} r={r} {dn} {shape}",
-                    cost_volume_backward(c1, wp, out, g, r),
+                    f"cost_volume_backward {tag} r={r} {dn} {shape}", first,
                     cost_volume_backward_plain(c1, wp, out, g, r), dtype))
-        for tag, shape in level_shapes[1:] + [("ragged", s) for s in RAGGED_WARP]:
+                second = cost_volume_backward(c1, wp, out, g, r)
+                if not all(torch.equal(u, v) for u, v in zip(first, second)):
+                    raise AssertionError(f"cost_volume_backward {tag} r={r} {dn}: two calls "
+                                         "gave different bits")
+        # orthogonal features: every cost exactly 0, where JAX's slope is 1
+        shape = (PRETRAIN_BATCH, *LEVELS[4])
+        c1, wp = randn(gen, shape, dtype), randn(gen, shape, dtype)
+        half = shape[3] // 2
+        c1[..., half:] = 0
+        wp[..., :half] = 0
+        out = cost_volume(c1, wp, 4)
+        if bool(out.any()):
+            raise AssertionError("cost_volume_backward zero-cost check: costs are not all 0")
+        g = randn(gen, out.shape, dtype)
+        err["cost_volume_backward"] = max(err["cost_volume_backward"], check_backward(
+            f"cost_volume_backward zero costs r=4 {dn} {shape}",
+            cost_volume_backward(c1, wp, out, g, 4),
+            cost_volume_backward_plain(c1, wp, torch.ones_like(out), g, 4), dtype))
+        for tag, shape in level_shapes[1:] + [("ragged", s) for s in RAGGED_WARP_BACKWARD]:
             image, g = randn(gen, shape, dtype), randn(gen, shape, dtype)
             for kind, flow in (("clamp", clamp_flow(gen, *shape[:3], dtype)),
                                ("zero", torch.zeros((*shape[:3], 2), device="cuda",
-                                                    dtype=dtype))):
+                                                    dtype=dtype)),
+                               ("far", far_flow(gen, *shape[:3], dtype))):
                 err["warp_backward"] = max(err["warp_backward"], check_backward(
                     f"warp_backward {tag} {kind} flow {dn} {shape}",
                     warp_backward(image, flow, g), warp_backward_plain(image, flow, g), dtype))
@@ -521,7 +561,8 @@ def time_kernels(with_plain: bool = True) -> dict:
 def time_backward_kernels(with_plain: bool = True) -> dict:
     """Both backward kernels at the pretrain phase's level shapes (batch 16,
     r=4), and their sums over one pretrain step's launches, per dtype:
-    {dtype: {kernel: sums}}. The warp's yardstick is the backward of
+    {dtype: {kernel: sums, "levels": {level: {kernel: {device_ms, ms,
+    share_of_bound}}}}}. The warp's yardstick is the backward of
     `F.grid_sample` (aten::grid_sampler_2d_backward, both gradients in one
     call): the same work, with its own coordinate and clamp rules."""
     gen = torch.Generator(device="cuda").manual_seed(4)
@@ -531,6 +572,7 @@ def time_backward_kernels(with_plain: bool = True) -> dict:
         dn = dtype_name(dtype)
         t = {k: dict.fromkeys(keys, 0.0) for k in BACKWARD_KERNELS}
         by = {k: {"bytes": 0.0, "operations": 0.0} for k in t}
+        levels = {}
         for lvl, (h, w, c) in LEVELS.items():
             shape = (PRETRAIN_BATCH, h, w, c)
             c1, wp = randn(gen, shape, dtype), randn(gen, shape, dtype)
@@ -551,6 +593,9 @@ def time_backward_kernels(with_plain: bool = True) -> dict:
                     warp_backward_bound(*shape, dtype),
                     plain=warp_backward_plain if with_plain else None,
                     library=(torch.ops.aten.grid_sampler_2d_backward, lib_args))
+            levels[f"L{lvl}"] = {name: {"device_ms": row["device_ms"], "ms": row["ms"],
+                                        "share_of_bound": row["share_of_bound"]}
+                                 for name, row in rows.items()}
             for name, row in rows.items():
                 log("kernels: " + json.dumps({"time": f"{name} L{lvl} {dn} batch "
                                               f"{PRETRAIN_BATCH}" + (" r=4" if name ==
@@ -564,8 +609,8 @@ def time_backward_kernels(with_plain: bool = True) -> dict:
             t[name]["share_of_bound"] = t[name]["bound_ms"] / t[name]["device_ms"]
         # no single PyTorch call computes the cost volume's gradient
         t["cost_volume_backward"]["library_ms"] = None
-        totals[dn] = t
         log("kernels: " + json.dumps({"per_pretrain_step": dn, "batch": PRETRAIN_BATCH, **t}))
+        totals[dn] = {**t, "levels": levels}
     return totals
 
 
@@ -1594,14 +1639,31 @@ def phase_repro(report: dict) -> None:
     report["launches"]["dynamic_copy"] = launches
 
 
-def main_times() -> int:
-    """Kernel times only, for the package under --root."""
-    log(f"card: {card_line()}")
+def log_build() -> None:
+    """Build the kernels (or load them) and print ptxas' resource usage."""
     lib = _build.library()
     log(f"build: nvcc {lib.build_seconds:.2f} s -> {lib.path}")
+    for line in lib.log.splitlines():
+        if any(w in line for w in ("registers", "spill", "Compiling entry")):
+            log("build: " + line.strip())
+
+
+def main_times() -> int:
+    """Kernel times only, for the package under --root: the forward kernels
+    summed over one forward, the backward kernels per level and summed over
+    one pretraining step."""
+    log(f"card: {card_line()}")
+    log_build()
     totals = time_kernels(with_plain=False)
-    print(json.dumps({"times": {dn: {k: {"device_ms": v["device_ms"], "ms": v["ms"]}
-                                     for k, v in t.items()} for dn, t in totals.items()},
+    backward = time_backward_kernels(with_plain=False)
+
+    def sums(t):
+        return {k: {"device_ms": v["device_ms"], "ms": v["ms"]}
+                for k, v in t.items() if k != "levels"}
+
+    print(json.dumps({"times": {dn: sums(t) for dn, t in totals.items()},
+                      "backward": {dn: {**sums(t), "levels": t["levels"]}
+                                   for dn, t in backward.items()},
                       "root": os.path.abspath(ARGS.root or os.path.dirname(__file__))}))
     return 0
 
@@ -1620,11 +1682,7 @@ def main() -> int:
         if phase == "card":
             log(f"card: {card_line()}")
         elif phase == "build":
-            lib = _build.library()
-            log(f"build: nvcc {lib.build_seconds:.2f} s -> {lib.path}")
-            for line in lib.log.splitlines():
-                if any(w in line for w in ("registers", "spill", "Compiling entry")):
-                    log("build: " + line.strip())
+            log_build()
         elif phase == "kernels":
             phase_kernels(report)
         elif phase == "path":

@@ -5,8 +5,9 @@ The backward kernels are held to their plain backwards: float32 within
 1e-5 of each gradient's largest element (sums in other orders; the warp's
 image gradient adds with atomics in no fixed order), bfloat16 within 2^-7
 of it (both sum in float32 and round once; an atomic sum may round to the
-neighbouring bfloat16). The file imports no JAX, so it also runs where only
-PyTorch is installed:
+neighbouring bfloat16). The cost volume's backward is also held at exactly
+zero costs (slope 1) and to the same bits in two calls. The file imports
+no JAX, so it also runs where only PyTorch is installed:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels_card.py
 """
@@ -32,6 +33,15 @@ SHAPES = ((2, 6, 10, 196), (2, 96, 160, 32), (1, 1, 1, 196), (1, 2, 3, 96),
 # (the scalar path), the smallest image the warp takes, H and W odd
 WARP_SHAPES = ((2, 12, 20, 128), (2, 96, 160, 32), (1, 2, 2, 1), (1, 12, 20, 1),
                (3, 7, 11, 33), (2, 5, 9, 12), (1, 13, 70, 64))
+# The cost volume's backward tiles rows (TY), pixels (TX) and channel
+# chunks of up to 8 quads: besides SHAPES, H and W off both tiles, C one
+# quad past a chunk (36) and one channel past a quad (33), C under a quad
+# (3), the level-4 and level-5 shapes at batch 1
+BACKWARD_SHAPES = SHAPES + ((1, 24, 40, 96), (1, 12, 20, 128), (2, 11, 37, 36),
+                            (1, 9, 23, 3), (1, 17, 45, 33))
+# The warp's backward: besides WARP_SHAPES, C % 4 != 0 with C > 4 (6) and a
+# quad count that is not a power of two (C=24, 6 quads)
+WARP_BACKWARD_SHAPES = WARP_SHAPES + ((2, 7, 9, 6), (1, 12, 20, 24))
 
 
 @pytest.fixture
@@ -103,7 +113,7 @@ BACKWARD_LIMIT = {torch.float32: 1e-5, torch.bfloat16: 2.0**-7}
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("shape", BACKWARD_SHAPES)
 def test_cost_volume_backward_kernel_matches_plain(cuda_device, shape):
     rs = np.random.RandomState(3)
     a, b = (torch.from_numpy(rs.randn(*shape).astype(np.float32)).to(cuda_device)
@@ -124,13 +134,59 @@ def test_cost_volume_backward_kernel_matches_plain(cuda_device, shape):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("flow_kind", ["clamp", "zero"])
-@pytest.mark.parametrize("shape", WARP_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cost_volume_backward_slope_one_at_zero_cost(cuda_device, dtype):
+    # c1 lives in the first half of the channels and warp in the second, so
+    # every cost is exactly 0: JAX's leaky_relu passes g with slope 1 there
+    # (a slope of 0.1 would give a tenth of the gradient)
+    rs = np.random.RandomState(6)
+    shape = (2, 12, 20, 64)
+    a, b = rs.randn(*shape).astype(np.float32), rs.randn(*shape).astype(np.float32)
+    a[..., 32:] = 0.0
+    b[..., :32] = 0.0
+    x, y = (torch.from_numpy(v).to(cuda_device).to(dtype) for v in (a, b))
+    out = cost_volume_plain(x, y, 4)
+    assert not bool(out.any())
+    g = torch.from_numpy(rs.randn(*out.shape).astype(np.float32)).to(cuda_device).to(dtype)
+    got = cost_volume_backward(x, y, out, g, 4)
+    want = cost_volume_backward_plain(x, y, torch.ones_like(out), g, 4)
+    for gt, wt in zip(got, want):
+        assert _of_largest(gt, wt) <= BACKWARD_LIMIT[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(16, 96, 160, 32), (16, 6, 10, 196), (3, 7, 11, 33)])
+def test_cost_volume_backward_same_bits_every_call(cuda_device, shape):
+    # sums in a fixed order, no atomics
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    for dtype in (torch.float32, torch.bfloat16):
+        x, y = (torch.randn(shape, generator=gen, device=cuda_device).to(dtype)
+                for _ in range(2))
+        out = cost_volume(x, y, 4)
+        g = torch.randn(out.shape, generator=gen, device=cuda_device).to(dtype)
+        first = cost_volume_backward(x, y, out, g, 4)
+        second = cost_volume_backward(x, y, out, g, 4)
+        assert all(torch.equal(u, v) for u, v in zip(first, second))
+
+
+def _far_flow(rs, b, h, w):
+    """Flow of 40 to 60 pixels either way on each axis: taps land far from
+    their pixel (clamped where they leave the image)."""
+    mag = rs.uniform(40.0, 60.0, size=(b, h, w, 2)) * rs.choice([-1.0, 1.0], size=(b, h, w, 2))
+    return mag.astype(np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flow_kind", ["clamp", "zero", "far"])
+@pytest.mark.parametrize("shape", WARP_BACKWARD_SHAPES)
 def test_warp_backward_kernel_matches_plain(cuda_device, shape, flow_kind):
     rs = np.random.RandomState(4)
     image = torch.from_numpy(rs.randn(*shape).astype(np.float32)).to(cuda_device)
-    flow = (torch.zeros((*shape[:3], 2)) if flow_kind == "zero"
-            else torch.from_numpy(clamp_flow(rs, *shape[:3]))).to(cuda_device)
+    if flow_kind == "zero":
+        flow = np.zeros((*shape[:3], 2), np.float32)
+    else:
+        flow = (clamp_flow if flow_kind == "clamp" else _far_flow)(rs, *shape[:3])
+    flow = torch.from_numpy(flow).to(cuda_device)
     g = torch.from_numpy(rs.randn(*shape).astype(np.float32)).to(cuda_device)
     for dtype in (torch.float32, torch.bfloat16):
         im, fl, gg = image.to(dtype), flow.to(dtype), g.to(dtype)

@@ -55,6 +55,11 @@
 
 namespace {
 
+using udt::ceil_div;
+using udt::cp_async_commit;
+using udt::cp_async_wait_prior;
+using udt::load_quad;
+
 constexpr int kRowPad = 16;              // bytes after each staged row (banks)
 constexpr int kMaxThreads = 256;
 constexpr int kSmemTarget = 100 * 1024;  // per block: two blocks per SM
@@ -72,83 +77,11 @@ struct Tile {
   float inv_c;
 };
 
-// One staging copy of 2^vb_log2 bytes global -> shared; zero-filled when
-// !valid (src then only has to be a valid address, it is not read).
-__device__ __forceinline__ void stage_copy(unsigned char* dst, const unsigned char* src,
-                                           bool valid, int vb_log2) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  switch (vb_log2) {
-    case 4:
-      asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
-                   "r"(valid ? 16 : 0) : "memory");
-      break;
-    case 3:
-      asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d), "l"(src),
-                   "r"(valid ? 8 : 0) : "memory");
-      break;
-    case 2:
-      asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
-                   "r"(valid ? 4 : 0) : "memory");
-      break;
-    default:
-      *reinterpret_cast<uint16_t*>(dst) =
-          valid ? *reinterpret_cast<const uint16_t*>(src) : uint16_t(0);
-  }
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_prior() {   // all groups but the newest
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
-
-// Four channels from shared memory, widened to float32.
-template <typename T> __device__ __forceinline__ float4 load_quad(const unsigned char* p);
-template <> __device__ __forceinline__ float4 load_quad<float>(const unsigned char* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-template <> __device__ __forceinline__ float4 load_quad<__nv_bfloat16>(const unsigned char* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
-                     __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
-}
-
 __device__ __forceinline__ float dot4(const float4& a, const float4& w, float s) {
   s = fmaf(a.x, w.x, s);
   s = fmaf(a.y, w.y, s);
   s = fmaf(a.z, w.z, s);
   return fmaf(a.w, w.w, s);
-}
-
-// Stage `rows` rows of `cols` pixels, bytes [cb0, cb0 + 2^sb_log2) of each,
-// from image rows y_first.. and columns x_first.. into `s` (row stride
-// `srow`, pixel stride 2^sb_log2); out-of-image pixels and bytes past the
-// pixel's channels are zero-filled.
-template <typename T>
-__device__ __forceinline__ void stage_rows(const T* __restrict__ img, unsigned char* s,
-                                           const Tile& t, long long b, int y_first,
-                                           int x_first, int rows, int cols, int srow,
-                                           int cb0) {
-  const int per_row_log2 = t.sb_log2 - t.vb_log2;   // copies per pixel, log2
-  const int per_row = cols << per_row_log2;
-  const long long pix_bytes = static_cast<long long>(t.C) * sizeof(T);
-  const unsigned char* base = reinterpret_cast<const unsigned char*>(img);
-  for (int row = 0; row < rows; ++row) {
-    const int yy = y_first + row;
-    const bool row_ok = yy >= 0 && yy < t.H;
-    const unsigned char* src_row = base + (b * t.H + (row_ok ? yy : 0)) * t.W * pix_bytes;
-    unsigned char* dst_row = s + row * srow;
-    for (int i = threadIdx.x; i < per_row; i += blockDim.x) {
-      const int col = i >> per_row_log2;
-      const int cb = cb0 + ((i - (col << per_row_log2)) << t.vb_log2);
-      const int xx = x_first + col;
-      const bool valid = row_ok && xx >= 0 && xx < t.W && cb < pix_bytes;
-      stage_copy(dst_row + (i << t.vb_log2), valid ? src_row + xx * pix_bytes + cb : base,
-                 valid, t.vb_log2);
-    }
-  }
 }
 
 // Blocks per SM the compiler must leave registers for: two for the float32
@@ -201,9 +134,10 @@ cost_volume_kernel(const T* __restrict__ c1, const T* __restrict__ warp, T* __re
 
   const int nchunks = static_cast<int>(
       (static_cast<long long>(t.C) * sizeof(T) + sb - 1) >> t.sb_log2);
+  const udt::Staging st{t.H, t.W, t.C, t.sb_log2, t.vb_log2};
   auto stage = [&](int chunk, unsigned char* s) {
-    stage_rows<T>(warp, s, t, b, y0 + dy0 - R, x0 - R, hy, hx, wrow, chunk * sb);
-    stage_rows<T>(c1, s + hy * wrow, t, b, y0, x0, t.ty, tx, crow, chunk * sb);
+    udt::stage_rows<T>(warp, s, st, b, y0 + dy0 - R, x0 - R, hy, hx, wrow, chunk * sb);
+    udt::stage_rows<T>(c1, s + hy * wrow, st, b, y0, x0, t.ty, tx, crow, chunk * sb);
   };
   stage(0, smem);
   cp_async_commit();
@@ -295,8 +229,6 @@ struct Plan {
   size_t smem;
 };
 
-int ceil_div(int a, int b) { return (a + b - 1) / b; }
-
 int sm_count() {
   static int n = 0;
   if (n == 0) {
@@ -382,11 +314,8 @@ template <typename T, int R>
 cudaError_t launch(const void* c1, const void* warp, void* out, int B, int H, int W, int C,
                    cudaStream_t stream) {
   // widest copy that the pixel stride and both pointers are aligned to
-  const uintptr_t align = reinterpret_cast<uintptr_t>(c1) | reinterpret_cast<uintptr_t>(warp) |
-                          static_cast<uintptr_t>(C * sizeof(T));
-  int vb_log2 = 4;
-  while (vb_log2 > 1 && (align & ((1u << vb_log2) - 1))) --vb_log2;
-  if (align & ((1u << vb_log2) - 1)) return cudaErrorMisalignedAddress;
+  const int vb_log2 = udt::copy_log2(c1, warp, static_cast<long long>(C) * sizeof(T));
+  if (vb_log2 < 0) return cudaErrorMisalignedAddress;
   const Plan pl = make_plan(B, H, W, C, R, sizeof(T), vb_log2);
   if (pl.p == 8) return launch_p<T, R, 8>(pl, c1, warp, out, stream);
   return launch_p<T, R, 4>(pl, c1, warp, out, stream);
