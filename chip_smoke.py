@@ -48,6 +48,24 @@ Phases, in order, each printed with its wall seconds:
              prefetch, feeding and bookkeeping included; frames come from
              arrays, not decoded files); and whether cv2 and PIL import on
              this machine;
+* postproc -- the post-processed evaluation path at full width (PWC r=2,
+             recover f=0.25, the eval phase's weights and batches): the
+             4-crop `EnsembleEvaluator` at batch 8 (4B = 32 frames through
+             PWC) in float32 and bfloat16 (5 cost-volume and 4 warp
+             launches per batch, no backward or tile-copy launch, frames/s,
+             the busy share of one batch, each kernel against its plain
+             version on one batch's own inputs), the crop-1.0 member
+             against `Evaluator.infer`, card against CPU at B=1, bfloat16
+             against float32 on the 4-crop-mean dataset IoU and MAE; the
+             dense `evaluate_dataset` (one PNG and one .mat per frame, its
+             host metrics against the device's on the same masks and
+             against a second forward); the CLI chain on a cv2 JPEG tree of
+             2 x 6 frames at 480x854: `test_generator_ensemble` for the
+             shifts -2, -1, 1, 2 on a training save, then `post_processing`
+             with the PWC backend on the card and the native CRF (seconds
+             per frame of the soft score, the propagation and the CRF, the
+             resized CRF IoU); `pwc_flow_fn` on one 192x384 pair, card
+             against CPU, its launches and kernels, ms per pair;
 * train   -- the two-player training game at full width (reader 384x640,
              working 192x384, PWC 6 levels r=2, generator cnum 32, recover
              f=0.25) with seeded random weights: one `generator_step` and one
@@ -143,7 +161,8 @@ from unsupervised_detection_tpu_torch.ops.cost_volume import (  # noqa: E402
 from unsupervised_detection_tpu_torch.ops.warp import (  # noqa: E402
     dense_image_warp, warp_backward, warp_backward_plain, warp_plain)
 
-PHASES = ("card", "build", "kernels", "path", "eval", "train", "pretrain", "repro", "profile")
+PHASES = ("card", "build", "kernels", "path", "eval", "postproc", "train", "pretrain", "repro",
+          "profile")
 BATCH = 8
 # PWC pyramid level -> (H, W, C) at the 384x640 reader resolution
 LEVELS = {6: (6, 10, 196), 5: (12, 20, 128), 4: (24, 40, 96), 3: (48, 80, 64), 2: (96, 160, 32)}
@@ -255,6 +274,18 @@ KERNEL_SOURCES = {
                       "unsupervised_detection_tpu/ops/warp.py:150"),
 }
 BACKWARD_KERNELS = ("cost_volume_backward", "warp_backward")
+# the postproc phase: the 4-crop ensemble (4B = 32 frames through PWC at
+# batch 8) on the eval phase's batches at r=2, with the train phase's
+# weights; the CLI chain on a JPEG tree of 2 x 6 frames at 480x854, at
+# batch 4 (3 full batches: a wrapped last batch numbers its duplicates
+# differently under each shift's sample order, and the soft score reads
+# the same frames under every shift); frames at the working resolution
+# for the propagation backend
+ENSEMBLE_TOL = 1e-4        # crop-1.0 member vs Evaluator.infer, float32 card
+DENSE_METRIC_TOL = 1e-6    # dense path's host metrics vs the device's
+PWC_FLOW_REL = 1e-4        # pwc_flow_fn card vs CPU, of the flow's largest component
+CHAIN_SEQS, CHAIN_FRAMES, CHAIN_BATCH = 2, 6, 4
+SHIFTS = (-2, -1, 1, 2)
 # device-side kernel names (substrings of the profiler's event names)
 KERNEL_SYMBOLS = {"cost_volume": "cost_volume_kernel", "warp": "warp_kernel",
                   "dynamic_copy": "dynamic_copy_kernel",
@@ -903,16 +934,16 @@ def phase_eval(report: dict) -> None:
     log(f"eval: probe {json.dumps(probe_imports())}")
 
 
-def train_weights(seed: int = 0) -> dict:
+def train_weights(seed: int = 0, head: float = 30.0) -> dict:
     """Seeded random weights of the three nets in the flax layout (numpy),
-    at full width; the generator's head x 30 so that the mask spans [0, 1]
-    and its gradients do not vanish."""
+    at full width; the generator's head x `head` so that the mask spans
+    [0, 1] and its gradients do not vanish."""
     from unsupervised_detection_tpu_torch.convert import random_jax_params, random_recover_params
     from unsupervised_detection_tpu_torch.models import GeneratorNet, PWCNet, RecoverNet
 
     gen_p, gen_s, pwc_p = random_jax_params(
         GeneratorNet(), PWCNet(search_range=TRAIN_SIZES["pwc_search_range"]), seed)
-    gen_p["conv17"]["conv"]["kernel"] = gen_p["conv17"]["conv"]["kernel"] * 30.0
+    gen_p["conv17"]["conv"]["kernel"] = gen_p["conv17"]["conv"]["kernel"] * head
     return {"gen_params": gen_p, "gen_stats": gen_s, "pwc_params": pwc_p,
             "rec_params": random_recover_params(RecoverNet(), seed + 1)}
 
@@ -1239,8 +1270,8 @@ def write_davis_tree(root: str, sequences: int = 2, frames: int = 10,
     return root
 
 
-def run_captured(fn, *args, **kw):
-    """fn's result and what it printed (echoed to the log)."""
+def run_captured(fn, *args, prefix: str = "train: cli: ", **kw):
+    """fn's result and what it printed (echoed to the log after `prefix`)."""
     import contextlib
     import io
 
@@ -1249,7 +1280,7 @@ def run_captured(fn, *args, **kw):
         result = fn(*args, **kw)
     for line in buf.getvalue().splitlines():
         if not line.startswith((" ", "{")):     # skip the pretty-printed config
-            log("train: cli: " + line)
+            log(prefix + line)
     return result, buf.getvalue()
 
 
@@ -1611,6 +1642,364 @@ def phase_pretrain(report: dict) -> None:
     report["pretrain"] = out
 
 
+def postproc_counts(what: str, forwards: int, warps: int | None = None) -> dict:
+    """Hold the launches since the last reset_counts to `forwards` PWC
+    forwards (5 cost volume and 4 warp each), or to `warps` warps alone,
+    with no backward and no tile-copy launch; returns the counts."""
+    counts = launch_counts()
+    want = {"cost_volume": 5 * forwards, "warp": 4 * forwards if warps is None else warps,
+            "dynamic_copy": 0, "cost_volume_backward": 0, "warp_backward": 0}
+    log(f"postproc: {what}: launches {json.dumps(counts)}")
+    if counts != want:
+        raise AssertionError(f"postproc {what}: launches {counts}, expected {want}")
+    return counts
+
+
+def ensemble_dataset(ens, batches) -> dict:
+    """The ensemble CLI's metrics (each frame the mean over its crops) over
+    `batches`, counts from 0 and held after every batch; with the counts
+    of the whole run."""
+    import numpy as np
+
+    from unsupervised_detection_tpu_torch.eval.ensemble import crop_metrics
+
+    ious, maes = [], []
+    reset_counts()
+    for n, batch in enumerate(batches, 1):
+        out = ens.run(batch)
+        counts = postproc_counts(f"ensemble {dtype_name(ens.objective.dtype)} after batch {n}", n)
+        for b in range(out["pred_masks"].shape[1]):
+            i, m, _ = crop_metrics(out, b)
+            ious.append(float(np.mean(i)))
+            maes.append(float(np.mean(m)))
+    return {"dataset_iou": float(np.mean(ious)), "dataset_mae": float(np.mean(maes)),
+            "frames": len(ious), "launches": counts}
+
+
+def postproc_ensemble(cfg: Config, nets: dict, batches, report: dict):
+    """EnsembleEvaluator at batch 8 in both dtypes on the eval phase's
+    batches: launches, frames/s, busy share, the crop-1.0 member against
+    Evaluator.infer, card vs CPU at B=1, bfloat16 vs float32 with a control
+    that the limits must flag, and the kernels against their plain versions
+    at 4B = 32."""
+    import numpy as np
+
+    from unsupervised_detection_tpu_torch.eval import TEST_CROPS, EnsembleEvaluator
+    from unsupervised_detection_tpu_torch.eval import ensemble as ensemble_module
+
+    first = next(iter(batches))
+    res = {}
+    for dn in ("float32", "bfloat16"):
+        c = cfg.replace(compute_dtype=dn)
+        ens = EnsembleEvaluator(c, device="cuda")
+        ens.load_state_dicts(*nets)
+        res[dn] = ensemble_dataset(ens, batches)
+        torch.cuda.synchronize()
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            for batch in batches:
+                ens.run(batch)
+            walls.append(time.perf_counter() - t0)
+        walls.sort()
+        fps = res[dn]["frames"] / walls[1]
+        wall_us, busy, _ = profile_window(lambda: ens.run(first), 1)
+        log(f"postproc: ensemble {dn} batch {BATCH} ({4 * BATCH} crops through PWC): {fps:.2f} "
+            f"frames/s ({res[dn]['frames']} frames in {walls[1] * 1e3:.3f} ms, median of 3; "
+            f"frames from arrays, host metrics included); one batch under the profiler "
+            f"{wall_us / 1e3:.3f} ms, device busy {busy / 1e3:.3f} ms "
+            f"({100.0 * busy / wall_us:.1f}%); 4-crop-mean dataset IoU "
+            f"{res[dn]['dataset_iou']} MAE {res[dn]['dataset_mae']} [{card_line()}]")
+        res[dn]["fps"] = fps
+        res[dn]["busy_share"] = busy / wall_us
+        res[dn]["kernel_err"] = check_step_kernels(lambda: ens.run(first),
+                                                   f"ensemble 4B={4 * BATCH}")
+        if dn == "float32":
+            ens32 = ens
+        else:
+            ens16 = ens
+
+    def bf16_diffs(r: dict) -> tuple[float, float]:
+        return (abs(r["dataset_iou"] - res["float32"]["dataset_iou"]),
+                abs(r["dataset_mae"] - res["float32"]["dataset_mae"]))
+
+    d_iou, d_mae = bf16_diffs(res["bfloat16"])
+    log(f"postproc: ensemble bfloat16 vs float32: abs diff IoU {d_iou} (tol {BF16_IOU_TOL}), "
+        f"MAE {d_mae} (tol {BF16_MAE_TOL})")
+    if not (d_iou <= BF16_IOU_TOL and d_mae <= BF16_MAE_TOL):
+        raise AssertionError(f"postproc: bfloat16 ensemble differs by IoU {d_iou}, MAE {d_mae}")
+    # control: a bfloat16 ensemble fault the limits must see, the crop grid
+    # skipped (every member at crop 1.0), through the same comparison
+    ensemble_module.TEST_CROPS = [1.0] * len(TEST_CROPS)
+    try:
+        f_iou, f_mae = bf16_diffs(ensemble_dataset(ens16, batches))
+    finally:
+        ensemble_module.TEST_CROPS = TEST_CROPS
+    log(f"postproc: control, bfloat16 ensemble without the crop grid vs float32: abs diff IoU "
+        f"{f_iou}, MAE {f_mae}")
+    if f_iou <= BF16_IOU_TOL and f_mae <= BF16_MAE_TOL:
+        raise AssertionError("postproc: the bfloat16 limits do not flag a skipped crop grid")
+
+    # the crop-1.0 member is Evaluator.infer at test_crop=1.0
+    ev = Evaluator(cfg.replace(test_crop=1.0), device="cuda")
+    ev.load_state_dicts(*nets)
+    out = ens32.infer(*ens32.feeder.images(first), ens32.feeder.mask(first))
+    plain = ev.infer(*ev.device_batch(first))
+    full = TEST_CROPS.index(1.0)
+    err = (out["pred_masks"][full] - plain["gen_masks"]).abs().max().item()
+    log(f"postproc: crop-1.0 member vs Evaluator.infer, float32: max abs err {err} "
+        f"(tol {ENSEMBLE_TOL}); gt equal {torch.equal(out['gt_masks'][full], plain['gt_masks'])}")
+    if not err <= ENSEMBLE_TOL or not torch.equal(out["gt_masks"][full], plain["gt_masks"]):
+        raise AssertionError(f"postproc: crop-1.0 member differs from Evaluator.infer by {err}")
+
+    # card vs CPU, one sample (4 crops)
+    one = {k: v[:1] for k, v in first.items() if k.endswith("_raw")}
+    ens_cpu = EnsembleEvaluator(cfg.replace(batch_size=1), device="cpu")
+    ens_cpu.load_state_dicts(*nets)
+    t0 = time.perf_counter()
+    got, want = ens32.run(one), ens_cpu.run(one)
+    err = float(np.abs(got["pred_masks"] - want["pred_masks"]).max())
+    log(f"postproc: ensemble B=1 float32 card vs CPU: mask max abs err {err} (tol {MASK_TOL}); "
+        f"gt {float(np.abs(got['gt_masks'] - want['gt_masks']).max())}, img_1s "
+        f"{float(np.abs(got['img_1s'] - want['img_1s']).max())} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    if not err <= MASK_TOL:
+        raise AssertionError(f"postproc: ensemble card vs CPU {err} > {MASK_TOL}")
+    report["postproc_ensemble"] = res
+
+
+def postproc_dense(cfg: Config, nets: dict, batches, tmp: str) -> dict:
+    """evaluate_dataset's dense path against its metrics-only path on the
+    same batches: one PNG and one .mat per frame; the host metrics equal to
+    DENSE_METRIC_TOL to the device's on the same masks (the metrics-only
+    path replayed on the masks the dense run produced), and within
+    METRIC_TOL to a second forward. Two float32 forwards of the card may
+    differ in the last bits (cuDNN picks its algorithms per call), which
+    moves a mask value lying at the 0.1 threshold to the other side: one
+    pixel moves a frame's MAE by 1/(192*384) = 1.4e-5."""
+    import scipy.io as sio
+
+    from unsupervised_detection_tpu_torch.eval import evaluate_dataset
+    from unsupervised_detection_tpu_torch.ops.metrics import eval_iou_mae
+
+    ev = Evaluator(cfg, device="cuda")
+    ev.load_state_dicts(*nets)
+    save = os.path.join(tmp, "dense")
+    masks = []
+    infer = ev.infer
+
+    def recording(*args):
+        out = infer(*args)
+        masks.append((out["gen_masks"], out["gt_masks"]))
+        return out
+
+    ev.infer = recording
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        dense = evaluate_dataset(cfg, ev, save_dir=save, generate_visualization=True,
+                                 batches=batches, verbose=False)
+        torch.cuda.synchronize()
+    finally:
+        del ev.infer
+    wall = time.perf_counter() - t0
+    postproc_counts("dense evaluate_dataset", batches.num_steps)
+    replay = iter(masks)
+
+    def replayed(*_):
+        mask, gt = next(replay)
+        iou, mae = eval_iou_mae(mask, gt)
+        return {"iou": iou, "mae": mae}
+
+    ev.infer_metrics = replayed
+    try:
+        same = evaluate_dataset(cfg, ev, batches=batches, verbose=False)
+    finally:
+        del ev.infer_metrics
+    second = evaluate_dataset(cfg, ev, batches=batches, verbose=False)
+    diffs, diffs2 = ({f"{kind}[{cat}]": abs(dense[kind][cat] - v)
+                      for kind in ("category_iou", "category_mae")
+                      for cat, v in res[kind].items()} for res in (same, second))
+    first = next(iter(batches))
+    a, b = (ev.infer(*ev.device_batch(first))["gen_masks"] for _ in range(2))
+    flips = int(((a > 0.1) != (b > 0.1)).sum())
+    files = {cat: sorted(os.listdir(os.path.join(save, cat))) for cat in dense["category_iou"]}
+    n_png = sum(f.endswith(".png") for fs in files.values() for f in fs)
+    n_mat = sum(f.endswith(".mat") for fs in files.values() for f in fs)
+    some = sio.loadmat(os.path.join(save, next(iter(files)), "result_1.mat"))
+    keys = sorted(k for k in some if not k.startswith("__"))
+    log(f"postproc: dense evaluate_dataset float32: {dense['frames']} frames in {wall:.3f} s "
+        f"({dense['frames'] / wall:.2f} frames/s, PNG and .mat writes included), {n_png} PNG, "
+        f"{n_mat} .mat, keys {keys}; host vs device metrics on the same masks: max abs diff "
+        f"{max(diffs.values())} (tol {DENSE_METRIC_TOL}); vs a second forward: "
+        f"{max(diffs2.values())} (tol {METRIC_TOL}); two infers of one batch: max abs diff "
+        f"{(a - b).abs().max().item()}, {flips} of {a.numel()} pixels across 0.1")
+    if (n_png != dense["frames"] or n_mat != dense["frames"]
+            or keys != ["flow", "gt_mask", "img1", "pred_mask"]
+            or not all(d <= DENSE_METRIC_TOL for d in diffs.values())
+            or not all(d <= METRIC_TOL for d in diffs2.values())):
+        raise AssertionError(f"postproc: dense path: {n_png} PNG, {n_mat} .mat, keys {keys}, "
+                             f"metric diffs {diffs} and {diffs2}")
+    return {"frames_per_s": dense["frames"] / wall, "repeat_flips": flips,
+            "same_mask_diff": max(diffs.values()), "second_forward_diff": max(diffs2.values())}
+
+
+class StageTimer:
+    """Wraps module functions to sum their wall seconds (nested calls
+    included in the caller's total)."""
+
+    def __init__(self):
+        self.seconds: dict[str, float] = {}
+        self._saved = []
+
+    def wrap(self, module, name: str) -> None:
+        fn = getattr(module, name)
+
+        def timed(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                self.seconds[name] = self.seconds.get(name, 0.0) + time.perf_counter() - t0
+
+        self._saved.append((module, name, fn))
+        setattr(module, name, timed)
+
+    def restore(self) -> None:
+        for module, name, fn in reversed(self._saved):
+            setattr(module, name, fn)
+        self._saved.clear()
+
+
+def postproc_chain(tmp: str, weights: dict, report: dict) -> dict:
+    """The ensemble CLI for the four shifts on a port training save, then
+    the post-processing CLI with the PWC backend on the card; the stages'
+    seconds per frame; the native CRF backend named."""
+    from unsupervised_detection_tpu_torch import post_processing, test_generator_ensemble
+    from unsupervised_detection_tpu_torch.postproc import crf, propagate, soft_score
+    from unsupervised_detection_tpu_torch.train import checkpoint
+
+    root = write_davis_tree(os.path.join(tmp, "davis"), sequences=CHAIN_SEQS,
+                            frames=CHAIN_FRAMES)
+    cfg = Config(batch_size=CHAIN_BATCH, **TRAIN_SIZES)
+    _, state = make_learner(cfg, "cuda", weights)
+    os.makedirs(os.path.join(tmp, "ckpt"))
+    ckpt = checkpoint.save_best(os.path.join(tmp, "ckpt"), state)
+    pwc_ckpt = checkpoint.save_scope(os.path.join(tmp, "ckpt"), "pwc-final", state.pwc,
+                                     "pwc_params")
+    frames = CHAIN_SEQS * CHAIN_FRAMES
+    buf = os.path.join(tmp, "buffer")
+    flags = [f"--root_dir={root}", f"--ckpt_file={ckpt}", "--pwc_search_range=2",
+             f"--batch_size={CHAIN_BATCH}", "--num_threads=4", "--test_partition=trainval",
+             "--generate_visualization"]
+    t0 = time.perf_counter()
+    for s in SHIFTS:
+        reset_counts()
+        res, text = run_captured(test_generator_ensemble.main, flags + [
+            f"--test_temporal_shift={s}", f"--test_save_dir={buf}/davis_shift_{s}"],
+            prefix=f"postproc: ensemble cli shift {s}: ")
+        postproc_counts(f"ensemble CLI shift {s}", frames // CHAIN_BATCH)
+        if res["frames"] != frames or "The Average over the dataset: IoU is" not in text:
+            raise AssertionError(f"ensemble CLI shift {s}: {text[-300:]!r}")
+    ens_s = time.perf_counter() - t0
+
+    timer = StageTimer()
+    timer.wrap(soft_score, "buffer_to_soft_score")
+    timer.wrap(propagate, "propagate_sequences")
+    timer.wrap(crf, "run_crf")
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        out, text = run_captured(post_processing.main, [
+            f"--path_buffer={buf}", f"--out_soft_score={tmp}/soft",
+            f"--resized_out={tmp}/crf", "--flow_backend=pwc", f"--flow_ckpt={pwc_ckpt}",
+            "--pwc_search_range=2", "--discover_sequences"], prefix="postproc: cli: ")
+    finally:
+        timer.restore()
+    wall = time.perf_counter() - t0
+    # two passes over each sequence, one PWC call per frame pair
+    pairs = 2 * CHAIN_SEQS * (CHAIN_FRAMES - 1)
+    postproc_counts("post_processing CLI (PWC backend)", pairs)
+    backend = crf.backend_name()
+    sec = timer.seconds
+    per_frame = {"soft_score": (sec["buffer_to_soft_score"] - sec["propagate_sequences"]) / frames,
+                 "propagation": sec["propagate_sequences"] / frames,
+                 "crf": sec["run_crf"] / frames}
+    log(f"postproc: chain: ensemble CLI x4 shifts {ens_s:.2f} s; post_processing {wall:.2f} s, "
+        f"CRF backend {backend}; seconds per frame {json.dumps(per_frame)} ({frames} frames, "
+        f"{pairs} PWC pairs); resized CRF IoU {out['iou_resized']} [{card_line()}]")
+    if backend != "native" or "Propagation flow backend: pwc" not in text:
+        raise AssertionError(f"postproc: CLI ran the {backend} CRF: {text[-300:]!r}")
+    if not 0.0 <= out["iou_resized"] <= 1.0:
+        raise AssertionError(f"postproc: resized CRF IoU {out['iou_resized']}")
+    report["postproc_chain"] = {"per_frame_s": per_frame, "iou_resized": out["iou_resized"]}
+    return {"pwc_ckpt": pwc_ckpt, "soft": os.path.join(tmp, "soft")}
+
+
+def postproc_propagation(chain: dict, report: dict) -> None:
+    """pwc_flow_fn card vs CPU on one frame pair, its launches and kernels,
+    ms per pair."""
+    import numpy as np
+    import scipy.io as sio
+
+    from unsupervised_detection_tpu_torch.postproc import propagate
+
+    seq = sorted(os.listdir(chain["soft"]))[0]
+    mats = [sio.loadmat(os.path.join(chain["soft"], seq, f"result_{k}.mat"))
+            for k in range(1, CHAIN_FRAMES + 1)]
+    images = [np.squeeze(m["img1"]).astype(np.float64) / 255.0 for m in mats]
+    masks = np.stack([np.squeeze(m["pred_mask"]) for m in mats]).astype(np.float32)
+    h, w = masks.shape[1:]
+
+    flow_fn = propagate.pwc_flow_fn(chain["pwc_ckpt"], search_range=2, device="cuda")
+    cpu_fn = propagate.pwc_flow_fn(chain["pwc_ckpt"], search_range=2, device="cpu")
+    reset_counts()
+    got = flow_fn(images[1], images[0])
+    postproc_counts("pwc_flow_fn one pair", 1)
+    want = cpu_fn(images[1], images[0])
+    top = max(float(np.abs(x).max()) for x in want)
+    err = max(float(np.abs(g - x).max()) for g, x in zip(got, want))
+    walls = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        flow_fn(images[1], images[0])
+        walls.append(time.perf_counter() - t0)
+    walls.sort()
+    log(f"postproc: pwc_flow_fn {h}x{w} float32 card vs CPU: max abs err {err} of the flow's "
+        f"largest {top} (tol {PWC_FLOW_REL} of it); {walls[5] * 1e3:.3f} ms per pair "
+        f"(median of 10, host clock, transfers included) [{card_line()}]")
+    if not err <= PWC_FLOW_REL * top:
+        raise AssertionError(f"postproc: pwc_flow_fn card vs CPU {err} > {PWC_FLOW_REL} * {top}")
+    kernel_err = check_step_kernels(lambda: flow_fn(images[1], images[0]), f"pwc backend {h}x{w}")
+    report["postproc_propagation"] = {"pwc_pair_ms": walls[5] * 1e3, "kernel_err": kernel_err}
+
+
+def phase_postproc(report: dict) -> None:
+    """The post-processed evaluation path at full width (reader 384x640,
+    working 192x384, PWC 6 levels r=2, generator cnum 32, recover f=0.25,
+    seeded random weights): the ensemble, the dense evaluation, the CLI
+    chain ensemble -> post-processing and the PWC propagation backend."""
+    import tempfile
+
+    from unsupervised_detection_tpu_torch.convert import from_jax_params
+
+    # the eval phase's generator and PWC weights (seed 0, head x 100), for
+    # which the bfloat16 limits were set: with the train phase's head x 30
+    # the masks saturate less and the ensemble's bfloat16 MAE moved 3.9e-3
+    # (H100 reading)
+    weights = train_weights(head=100.0)
+    nets = from_jax_params(weights["gen_params"], weights["gen_stats"], weights["pwc_params"])
+    cfg = Config(batch_size=BATCH, **TRAIN_SIZES)
+    batches = eval_batches()
+    postproc_ensemble(cfg, nets, batches, report)
+    # the path's own run: the float32 ensemble over every batch
+    report["launches_postproc"] = report["postproc_ensemble"]["float32"]["launches"]
+    with tempfile.TemporaryDirectory() as tmp:
+        postproc_dense(cfg, nets, batches, tmp)
+        chain = postproc_chain(tmp, weights, report)
+        postproc_propagation(chain, report)
+
+
 def phase_profile(forwards: dict, images, iters: int = 3, top: int = 12) -> None:
     """Device time by kernel over `iters` of the path's forwards at batch 8
     (torch.profiler), and the device's busy share of the profiled window."""
@@ -1689,6 +2078,8 @@ def main() -> int:
             forwards, images = phase_path(report)
         elif phase == "eval":
             phase_eval(report)
+        elif phase == "postproc":
+            phase_postproc(report)
         elif phase == "train":
             phase_train(report)
         elif phase == "pretrain":
@@ -1710,6 +2101,7 @@ def main() -> int:
             # the forward, eval and train paths, which launch it 0 times
             "launches": report["launches_pretrain" if backward else "launches"][name],
             "launches_eval": 0 if backward else report["launches_eval"]["float32"][name],
+            "launches_postproc": report["launches_postproc"][name],
             "launches_train": 0 if backward else report["launches_train"][name],
             "launches_pretrain": report["launches_pretrain"][name],
             "max_abs_err": k["max_abs_err"],

@@ -22,6 +22,7 @@ from unsupervised_detection_tpu.eval.evaluator import evaluate_dataset as jax_ev
 from unsupervised_detection_tpu_torch import Config
 from unsupervised_detection_tpu_torch.convert import from_jax_params, random_jax_params
 from unsupervised_detection_tpu_torch.eval import Evaluator, evaluate_dataset
+from unsupervised_detection_tpu_torch.eval.evaluator import build_test_pipeline
 from unsupervised_detection_tpu_torch.models import GeneratorNet, PWCNet
 from unsupervised_detection_tpu_torch.test_generator import main
 from unsupervised_detection_tpu_torch.train.checkpoint import save_eval_checkpoint
@@ -140,15 +141,23 @@ def test_evaluate_dataset_matches_jax(dataset, partition, frames, trees, evaluat
 
 
 def test_visualization_needs_the_recover_net(evaluators, trees, tmp_path, capsys):
+    # it does not: the dense path runs on the generator and PWC weights
+    # alone (the recover net's flow enters no file) and writes a PNG and a
+    # .mat per frame (one batch here; test_torch_ensemble.py holds the
+    # whole path to JAX's and to the metrics-only path)
     _, _, ev = evaluators
     cfg = Config(**SIZES, root_dir=trees["DAVIS2016"])
-    with pytest.raises(NotImplementedError, match="recover net"):
-        evaluate_dataset(cfg, ev, save_dir=str(tmp_path), generate_visualization=True)
+    first = list(build_test_pipeline(cfg))[:1]
+    dense = evaluate_dataset(cfg, ev, save_dir=str(tmp_path), generate_visualization=True,
+                             verbose=False, batches=first)
+    files = sorted(f for _, _, fs in os.walk(tmp_path) for f in fs)
+    assert dense["frames"] == 8 and len(files) == 2 * 8
+    assert sum(f.endswith(".png") for f in files) == sum(f.endswith(".mat") for f in files)
     # without a save dir the JAX loop takes the metrics path too; quiet
-    # but for the reader's "Found ..." line
+    # but for the reader's "Found ..." lines
     assert evaluate_dataset(cfg, ev, generate_visualization=True, verbose=False)["frames"] == 16
     out = capsys.readouterr().out
-    assert _summary(out) == ["Found N images belonging to N experiments."]
+    assert _summary(out) == ["Found N images belonging to N experiments."] * 2
 
 
 @pytest.fixture(scope="module")

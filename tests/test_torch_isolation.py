@@ -15,9 +15,12 @@ import torch
 
 from unsupervised_detection_tpu.config import Config as JaxConfig
 from unsupervised_detection_tpu_torch import Config, parse_flags, pretrain_flow
+from unsupervised_detection_tpu_torch import post_processing
 from unsupervised_detection_tpu_torch import pretrain_recover as pretrain_recover_cli
+from unsupervised_detection_tpu_torch import test_generator_ensemble
 from unsupervised_detection_tpu_torch.benchlib import build_forward
-from unsupervised_detection_tpu_torch.eval import Evaluator
+from unsupervised_detection_tpu_torch.eval import EnsembleEvaluator, Evaluator
+from unsupervised_detection_tpu_torch.postproc.propagate import pwc_flow_fn
 from unsupervised_detection_tpu_torch.ops.cost_volume import cost_volume
 from unsupervised_detection_tpu_torch.ops.warp import dense_image_warp
 from unsupervised_detection_tpu_torch.train.learner import AdversarialLearner
@@ -68,11 +71,12 @@ def test_source_scan_finds_no_jax_import():
     assert not offenders, offenders
 
 
-def test_entry_points_default_to_the_card():
+def test_entry_points_default_to_the_card(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("this host has a card: the default device exists")
     cfg = Config(batch_size=1, reader_height=64, reader_width=64, img_height=32, img_width=32)
-    for entry in (Evaluator, build_forward, AdversarialObjective, AdversarialLearner):
+    for entry in (Evaluator, EnsembleEvaluator, build_forward, AdversarialObjective,
+                  AdversarialLearner):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             entry(cfg)
     train_cli = importlib.import_module("unsupervised_detection_tpu_torch.train.__main__")
@@ -86,6 +90,16 @@ def test_entry_points_default_to_the_card():
         pretrain_flow.main(["--pretrain_steps=1", "--batch_size=1"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         pretrain_recover_cli.main(["--allow_random_flow", "--pretrain_steps=1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        test_generator_ensemble.main(["--batch_size=1"])
+    # the PWC backend, alone and through the post-processing CLI, before it
+    # reads its checkpoint
+    missing = str(tmp_path / "pwc.npz")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pwc_flow_fn(missing)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        post_processing.main(["--flow_backend=pwc", f"--flow_ckpt={missing}",
+                              f"--path_buffer={tmp_path}"])
 
 
 def test_wrappers_take_plain_version_only_on_cpu():

@@ -42,6 +42,15 @@ BACKWARD_SHAPES = SHAPES + ((1, 24, 40, 96), (1, 12, 20, 128), (2, 11, 37, 36),
 # The warp's backward: besides WARP_SHAPES, C % 4 != 0 with C > 4 (6) and a
 # quad count that is not a power of two (C=24, 6 quads)
 WARP_BACKWARD_SHAPES = WARP_SHAPES + ((2, 7, 9, 6), (1, 12, 20, 24))
+# The post-processing path's shapes: PWC's levels (L6..L2) in the 4-crop
+# ensemble at 4B = 32 (reader 384x640), and in the PWC propagation
+# backend at batch 1 (frames 192x384); the warp also at C=1 on a whole
+# 192x384 frame (its scalar path at the working resolution)
+ENSEMBLE_LEVELS = tuple((32, h, w, c) for h, w, c in (
+    (6, 10, 196), (12, 20, 128), (24, 40, 96), (48, 80, 64), (96, 160, 32)))
+PAIR_LEVELS = tuple((1, h, w, c) for h, w, c in (
+    (3, 6, 196), (6, 12, 128), (12, 24, 96), (24, 48, 64), (48, 96, 32)))
+POSTPROC_WARP_SHAPES = ENSEMBLE_LEVELS[1:] + PAIR_LEVELS[1:] + ((1, 192, 384, 1),)
 
 
 @pytest.fixture
@@ -52,13 +61,11 @@ def cuda_device():
     return torch.device("cuda")
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("shape", SHAPES)
-def test_cost_volume_kernel_matches_plain(cuda_device, shape):
+def _check_cost_volume(device, shape):
     # float32: sums in other orders, 1e-5 on costs ~0.1; bfloat16: one ulp of
     # the largest cost (both sum in float32 and round once)
     rs = np.random.RandomState(0)
-    a, b = (torch.from_numpy(rs.randn(*shape).astype(np.float32)).to(cuda_device)
+    a, b = (torch.from_numpy(rs.randn(*shape).astype(np.float32)).to(device)
             for _ in range(2))
     for dtype in (torch.float32, torch.bfloat16):
         for r in (2, 4):
@@ -73,13 +80,11 @@ def test_cost_volume_kernel_matches_plain(cuda_device, shape):
             assert (got.float() - want.float()).abs().max().item() <= limit
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("shape", WARP_SHAPES)
-def test_warp_kernel_bit_equal_to_plain(cuda_device, shape):
+def _check_warp(device, shape):
     # the kernel repeats the plain version's arithmetic op for op
     rs = np.random.RandomState(1)
-    image = torch.from_numpy(rs.randn(*shape).astype(np.float32)).to(cuda_device)
-    flow = torch.from_numpy(clamp_flow(rs, *shape[:3])).to(cuda_device)
+    image = torch.from_numpy(rs.randn(*shape).astype(np.float32)).to(device)
+    flow = torch.from_numpy(clamp_flow(rs, *shape[:3])).to(device)
     for dtype in (torch.float32, torch.bfloat16):
         im, fl = image.to(dtype), flow.to(dtype)
         before = dense_image_warp.launches
@@ -87,6 +92,30 @@ def test_warp_kernel_bit_equal_to_plain(cuda_device, shape):
         torch.cuda.synchronize()
         assert dense_image_warp.launches == before + 1
         assert torch.equal(got, warp_plain(im, fl))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SHAPES)
+def test_cost_volume_kernel_matches_plain(cuda_device, shape):
+    _check_cost_volume(cuda_device, shape)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", WARP_SHAPES)
+def test_warp_kernel_bit_equal_to_plain(cuda_device, shape):
+    _check_warp(cuda_device, shape)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ENSEMBLE_LEVELS + PAIR_LEVELS)
+def test_cost_volume_kernel_at_postproc_shapes(cuda_device, shape):
+    _check_cost_volume(cuda_device, shape)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", POSTPROC_WARP_SHAPES)
+def test_warp_kernel_at_postproc_shapes(cuda_device, shape):
+    _check_warp(cuda_device, shape)
 
 
 @pytest.mark.cuda

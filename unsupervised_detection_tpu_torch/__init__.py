@@ -7,7 +7,10 @@ keep the JAX layout: NHWC images and flows, flow channel 0 is y. The two
 Pallas TPU kernels of the flagship forward (PWC cost volume and backward
 warp) are hand-written CUDA kernels under `csrc/`, with CUDA kernels of
 their gradients for PWC pretraining, built by `nvcc` at first use
-(`ops/_build.py`); every other operation is plain PyTorch.
+(`ops/_build.py`); every other operation is plain PyTorch. Post-processing
+(soft scores, host propagation, the dense CRF) runs on the host in numpy
+and cv2, and over the repository's native C++ solvers built with g++ at
+first use (`native/`).
 
 Importing this package imports neither JAX nor the JAX package.
 """

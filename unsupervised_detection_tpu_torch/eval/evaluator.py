@@ -1,16 +1,19 @@
 """Batched evaluation, counterpart of
-unsupervised_detection_tpu/eval/evaluator.py: `Evaluator.infer_metrics`,
-`Evaluator.device_batch` and `evaluate_dataset` on its metrics-only path
-(evaluator.py:145-257 with `fetch_dense` false). The dense path (`infer`:
-the recover net's flows, overlays and .mat dumps) also needs the flow
-colorizer and the visualizer, which the port does not have yet. One card,
-no mesh."""
+unsupervised_detection_tpu/eval/evaluator.py: `Evaluator.infer` (masks
+and the working-resolution inputs),
+`Evaluator.infer_metrics` (IoU/MAE reduced on the device),
+`Evaluator.device_batch`, the reference's host metrics, and
+`evaluate_dataset` with its metrics-only path and its dense path (overlay
+PNGs and `result_<n>.mat` files). One card, no mesh."""
 
 from __future__ import annotations
 
+import os
 from typing import Dict, Iterable, Optional
 
+import cv2
 import numpy as np
+import scipy.io as sio
 import torch
 
 from ..config import Config
@@ -20,6 +23,44 @@ from ..device import precision_scope
 from ..ops.metrics import eval_iou_mae
 from ..ops.resize import central_crop_resize, resize_nearest
 from ..train.objective import AdversarialObjective
+from ..utils.visualization import postprocess_image, postprocess_mask
+
+DES_WIDTH = 640
+DES_HEIGHT = 384
+BOUNDARY_THRESHOLD = 0.6  # test_generator.py:16
+MASK_THRESHOLD = 0.1      # test_generator.py:19
+
+
+def compute_boundary_score_np(mask: np.ndarray) -> float:
+    """Reference numpy boundary score (general_utils.py:117-132)."""
+    h, w = mask.shape[0], mask.shape[1]
+    strips = [mask[0:2], mask[h - 2:h], mask[:, 0:2], mask[:, w - 2:w]]
+    occ = sum(float(np.sum(s)) for s in strips)
+    total = sum(s.size for s in strips)
+    return occ / total
+
+
+def compute_iou_np(gt_mask: np.ndarray, pred_mask_f: np.ndarray,
+                   threshold: float = MASK_THRESHOLD):
+    """Reference compute_IoU (test_generator.py:19-35): binarize, pick the
+    side of the mask occupying < 60% of the border as foreground, IoU.
+    Returns (IoU, the binary foreground annotation)."""
+    gt = gt_mask.astype(bool)
+    pred = pred_mask_f > threshold
+    if compute_boundary_score_np(pred) < BOUNDARY_THRESHOLD:
+        annotation = pred
+    else:
+        annotation = np.logical_not(pred)
+    if np.isclose(np.sum(annotation), 0) and np.isclose(np.sum(gt), 0):
+        return 1.0, annotation
+    return (
+        np.sum(annotation & gt) / np.sum(annotation | gt, dtype=np.float32),
+        annotation,
+    )
+
+
+def compute_mae_np(gt_mask: np.ndarray, pred_mask: np.ndarray) -> float:
+    return float(np.mean(np.abs(gt_mask.astype(np.float32) - pred_mask)))
 
 
 class Evaluator:
@@ -45,27 +86,47 @@ class Evaluator:
         img1, img2 = self.feeder.images(batch)
         return img1, img2, self.feeder.mask(batch)
 
+    def _masks(self, img1, img2, gt):
+        """The reference order (build_test_graph, adversarial_learner.py:
+        450-523): central crop, PWC flow, working resize, mask. Returns the
+        working-resolution (image, flow, gt, mask)."""
+        cfg, obj = self.config, self.objective
+        img1, img2, gt = (t.to(self.device) for t in (img1, img2, gt))
+        if cfg.test_crop != 1.0:
+            img1 = central_crop_resize(img1, cfg.test_crop)
+            img2 = central_crop_resize(img2, cfg.test_crop)
+            gt = central_crop_resize(gt, cfg.test_crop)
+        flow = obj.compute_flow(img1, img2)
+        image, flow = obj.resize_to_working(img1, flow)
+        gt = resize_nearest(gt, (cfg.img_height, cfg.img_width))
+        return image, flow, gt, obj.generate_mask(image, flow)
+
+    @torch.inference_mode()
+    def infer(self, img1: torch.Tensor, img2: torch.Tensor,
+              gt: torch.Tensor) -> dict[str, torch.Tensor]:
+        """The dense outputs of one batch, float32 on the device:
+        `gen_masks` (B, h, w, 1), `input_image`, `gt_flow` (the
+        working-resolution flow the generator saw) and `gt_masks`, at the
+        working resolution (h, w). Inputs as `infer_metrics`. The JAX
+        package's `infer` also runs the recover net for a `pred_flow` that
+        nothing reads; this one skips it, as `infer_metrics` does."""
+        with precision_scope(self.objective.dtype):
+            image, flow, gt, mask = self._masks(img1, img2, gt)
+        return {"gen_masks": mask.float(), "input_image": image.float(),
+                "gt_flow": flow.float(), "gt_masks": gt.float()}
+
     @torch.inference_mode()
     def infer_metrics(self, img1: torch.Tensor, img2: torch.Tensor,
                       gt: torch.Tensor) -> dict[str, torch.Tensor]:
         """Per-frame IoU and MAE of the predicted masks.
 
         img1, img2: (B, reader_h, reader_w, 3) in [-0.5, 0.5]; gt: (B,
-        reader_h, reader_w, 1). The reference order: central crop, PWC flow,
-        working resize, mask, then the exact test_generator.py:19-40 metrics
-        (the recover forward is skipped; it never enters the metrics).
+        reader_h, reader_w, 1). The masks of `_masks`, then the exact
+        test_generator.py:19-40 metrics (the recover forward is skipped; it
+        never enters the metrics).
         """
-        cfg, obj = self.config, self.objective
-        img1, img2, gt = (t.to(self.device) for t in (img1, img2, gt))
-        with precision_scope(obj.dtype):
-            if cfg.test_crop != 1.0:
-                img1 = central_crop_resize(img1, cfg.test_crop)
-                img2 = central_crop_resize(img2, cfg.test_crop)
-                gt = central_crop_resize(gt, cfg.test_crop)
-            flow = obj.compute_flow(img1, img2)
-            image, flow = obj.resize_to_working(img1, flow)
-            gt = resize_nearest(gt, (cfg.img_height, cfg.img_width))
-            mask = obj.generate_mask(image, flow)
+        with precision_scope(self.objective.dtype):
+            _, _, gt, mask = self._masks(img1, img2, gt)
             iou_b, mae_b = eval_iou_mae(mask.float(), gt.float())
         return {"iou": iou_b, "mae": mae_b}
 
@@ -101,12 +162,15 @@ def evaluate_dataset(config: Config, evaluator: Evaluator, save_dir: Optional[st
     gives one: an iterable of `TestPipeline` batch dicts, for callers that
     feed frames without decoding files. Wrapped duplicates of the last batch
     count, in the frame count and in their category, as in the JAX loop.
+
+    With `generate_visualization` and `save_dir` the dense path runs
+    (`Evaluator.infer`): the metrics are the
+    reference's host ones, and each frame leaves `<save_dir>/<category>/
+    frame_<n:08d>.png` (the mask over the image, at 640x384) and
+    `result_<n>.mat` (flow, img1, pred_mask, gt_mask), n counting the
+    category's frames from 1, wrapped duplicates included.
     """
-    if generate_visualization and save_dir:
-        raise NotImplementedError(
-            "--generate_visualization with --test_save_dir needs the dense path (the "
-            "recover net's flows, the flow colorizer and the visualizer), which the "
-            "PyTorch port does not have yet")
+    dense = bool(generate_visualization and save_dir)
     if batches is None:
         batches = build_test_pipeline(config)
 
@@ -114,13 +178,27 @@ def evaluate_dataset(config: Config, evaluator: Evaluator, save_dir: Optional[st
     category_mae: Dict[str, list] = {}
     i = 0
     for batch in batches:
-        out = evaluator.infer_metrics(*evaluator.device_batch(batch))
-        ious = out["iou"].cpu().numpy()
-        maes = out["mae"].cpu().numpy()
-        for b in range(ious.shape[0]):
+        if not dense:
+            out = evaluator.infer_metrics(*evaluator.device_batch(batch))
+            ious = out["iou"].cpu().numpy()
+            maes = out["mae"].cpu().numpy()
+            for b in range(ious.shape[0]):
+                category = batch["category"][b]
+                category_iou.setdefault(category, []).append(float(ious[b]))
+                category_mae.setdefault(category, []).append(float(maes[b]))
+                i += 1
+            continue
+        out = evaluator.infer(*evaluator.device_batch(batch))
+        out = {k: v.cpu().numpy() for k, v in out.items()}
+        for b in range(out["input_image"].shape[0]):
+            gt_mask = out["gt_masks"][b]
             category = batch["category"][b]
-            category_iou.setdefault(category, []).append(float(ious[b]))
-            category_mae.setdefault(category, []).append(float(maes[b]))
+            iou, out_mask = compute_iou_np(gt_mask=gt_mask, pred_mask_f=out["gen_masks"][b])
+            category_iou.setdefault(category, []).append(iou)
+            category_mae.setdefault(category, []).append(
+                compute_mae_np(gt_mask=gt_mask, pred_mask=out_mask))
+            _save_frame(os.path.join(save_dir, category), len(category_iou[category]),
+                        out, b, out_mask)
             i += 1
 
     tot_ious = tot_maes = 0.0
@@ -146,3 +224,19 @@ def evaluate_dataset(config: Config, evaluator: Evaluator, save_dir: Optional[st
         print("The Average over sequences IoU is {}".format(results["sequence_iou"]))
         print("Success: Processed {} frames".format(i))
     return results
+
+
+def _save_frame(cat_dir: str, frame_id: int, out: dict, b: int, out_mask: np.ndarray) -> None:
+    """The dense path's files of frame `b` of a batch (evaluator.py:213-233
+    of the JAX package): the overlay PNG and the .mat of its arrays."""
+    os.makedirs(cat_dir, exist_ok=True)
+    bgr = postprocess_image(out["input_image"][b])
+    overlay = cv2.addWeighted(bgr, 0.5, postprocess_mask(out_mask), 0.4, 0)
+    overlay = cv2.resize(overlay, (DES_WIDTH, DES_HEIGHT))
+    cv2.imwrite(os.path.join(cat_dir, "frame_%08d.png" % frame_id), overlay)
+    sio.savemat(os.path.join(cat_dir, "result_%d.mat" % frame_id), {
+        "flow": out["gt_flow"][b],
+        "img1": out["input_image"][b] + 0.5,
+        "pred_mask": out_mask.astype(np.float64),
+        "gt_mask": out["gt_masks"][b],
+    })

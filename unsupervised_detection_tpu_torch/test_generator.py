@@ -5,10 +5,11 @@ test_generator.py with the same flag surface and summary lines:
         --root_dir=DAVIS --ckpt_file=model.npz --pwc_search_range=2 ...
 
 `--ckpt_file` is an evaluation checkpoint written by
-tools/export_torch_checkpoint.py. Prints per-category and dataset IoU/MAE
-(metrics-only path; `--generate_visualization` with `--test_save_dir` needs
-the dense path, which the port does not have yet, and raises). A training
-save of the port (`model.best`, `model-<epoch>`) is read as it is.
+tools/export_torch_checkpoint.py, or a training save of the port
+(`model.best`, `model-<epoch>`) as it is. Prints per-category and dataset
+IoU/MAE. With `--generate_visualization --test_save_dir=DIR` the dense path
+also writes each frame's overlay PNG and `result_<n>.mat` under
+DIR/<category>.
 """
 
 from __future__ import annotations
