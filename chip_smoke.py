@@ -66,6 +66,27 @@ Phases, in order, each printed with its wall seconds:
              per frame of the soft score, the propagation and the CRF, the
              resized CRF IoU); `pwc_flow_fn` on one 192x384 pair, card
              against CPU, its launches and kernels, ms per pair;
+* tf1     -- the reference's TF1 checkpoints without TensorFlow, full width
+             (generator cnum 32, recover f=0.25, PWC 6 levels), seeded random
+             weights: `export_tf1_checkpoint` at r=4 and r=2, read back with
+             `read_bundle`, every tensor bit-equal (bytes, write and read
+             seconds, crc32c included); `test_generator` on a cv2 JPEG tree
+             of 2 x 10 frames at 480x854 (reader 384x640, r=4, batch 8, 3
+             batches) from the r=4 bundle and from the `.npz` of the same
+             weights in float32 (TF32 off) and bfloat16: the restored state
+             dicts bit-equal, every IoU/MAE within METRIC_TOL, 5 + 4
+             launches per batch; an r=2 bundle at r=4 refused, naming both
+             ranges; `pwc_flow_fn` from the r=4 bundle against a scope save
+             of the same PWC on one 192x384 pair; the train CLI (float32,
+             r=2, batch 16, 8 sub-steps, `--summary_freq=2`) with
+             `--flow_ckpt` and `--recover_ckpt` the r=2 bundle, without the
+             TensorBoard writer, with it and without it again (launches per
+             sub-step, summary and validation batch; samples/s, wall and the
+             seconds in the summaries; the event file's scalar, histogram
+             and image tags). Where tensorboardX does not import, the
+             driver's writer is None, as in the JAX package, and PyTorch's
+             `torch.utils.tensorboard.SummaryWriter` stands in for the
+             writer run;
 * train   -- the two-player training game at full width (reader 384x640,
              working 192x384, PWC 6 levels r=2, generator cnum 32, recover
              f=0.25) with seeded random weights: one `generator_step` and one
@@ -161,8 +182,8 @@ from unsupervised_detection_tpu_torch.ops.cost_volume import (  # noqa: E402
 from unsupervised_detection_tpu_torch.ops.warp import (  # noqa: E402
     dense_image_warp, warp_backward, warp_backward_plain, warp_plain)
 
-PHASES = ("card", "build", "kernels", "path", "eval", "postproc", "train", "pretrain", "repro",
-          "profile")
+PHASES = ("card", "build", "kernels", "path", "eval", "postproc", "tf1", "train", "pretrain",
+          "repro", "profile")
 BATCH = 8
 # PWC pyramid level -> (H, W, C) at the 384x640 reader resolution
 LEVELS = {6: (6, 10, 196), 5: (12, 20, 128), 4: (24, 40, 96), 3: (48, 80, 64), 2: (96, 160, 32)}
@@ -1311,7 +1332,7 @@ def train_cli(report: dict) -> None:
             f"--num_samples_train={4 * TRAIN_BATCH}", "--max_epochs=1", "--summary_freq=1",
             "--save_freq=1"])
         counts = (cost_volume.launches, dense_image_warp.launches, dynamic_copy.launches)
-        saved = sorted(os.listdir(ckpt_dir))
+        saved = sorted(f for f in os.listdir(ckpt_dir) if not f.startswith("events.out."))
         log(f"train: cli: {time.perf_counter() - t0:.2f} s, saves {saved}, launches "
             f"cost_volume={counts[0]} warp={counts[1]} dynamic_copy={counts[2]}, Adam counts "
             f"{state.gen_opt.count}/{state.rec_opt.count}")
@@ -2000,6 +2021,330 @@ def phase_postproc(report: dict) -> None:
         postproc_propagation(chain, report)
 
 
+# --- phase tf1: the reference's TF1 checkpoints -------------------------------
+TF1_EVAL_RANGE, TF1_TRAIN_RANGE = 4, 2     # the reference's PWC bundles; the train phase's
+TF1_SUBSTEPS, TF1_SUMMARY_FREQ = 8, 2
+SUMMARY_IMAGES = ("input_image", "next_image", "masked_flow", "PWC_Flow", "Rec_flow",
+                  "Rec_flow_compl")
+
+
+def tf1_weights(search_range: int, seed: int = 20) -> dict:
+    """Seeded full-width weights of the three nets in the flax layout
+    (generator cnum 32, recover f=0.25, PWC at `search_range`), the
+    generator's head x 100 (the eval phase's sharp head)."""
+    from unsupervised_detection_tpu_torch.convert import random_jax_params, random_recover_params
+    from unsupervised_detection_tpu_torch.models import GeneratorNet, PWCNet, RecoverNet
+
+    gen_p, gen_s, pwc_p = random_jax_params(GeneratorNet(), PWCNet(search_range=search_range),
+                                            seed)
+    gen_p["conv17"]["conv"]["kernel"] = gen_p["conv17"]["conv"]["kernel"] * 100.0
+    return {"gen_params": gen_p, "gen_stats": gen_s, "pwc_params": pwc_p,
+            "rec_params": random_recover_params(RecoverNet(), seed + 1)}
+
+
+def tf1_nets(weights: dict, search_range: int):
+    """The three port nets on the CPU with `weights`, as a state for
+    export_tf1_checkpoint."""
+    import types
+
+    from unsupervised_detection_tpu_torch.convert import from_jax_params, recover_state_dict
+    from unsupervised_detection_tpu_torch.models import GeneratorNet, PWCNet, RecoverNet
+
+    state = types.SimpleNamespace(generator=GeneratorNet(), recover=RecoverNet(),
+                                  pwc=PWCNet(search_range=search_range), step=123)
+    gen_sd, pwc_sd = from_jax_params(weights["gen_params"], weights["gen_stats"],
+                                     weights["pwc_params"])
+    state.generator.load_state_dict(gen_sd)
+    state.pwc.load_state_dict(pwc_sd)
+    state.recover.load_state_dict(recover_state_dict(weights["rec_params"]))
+    return state
+
+
+def tf1_round_trip(tmp: str, weights: dict, search_range: int) -> dict:
+    """export_tf1_checkpoint of the nets, read back with read_bundle: every
+    tensor bit-equal; the bundle's bytes and the write and read seconds
+    (crc32c included)."""
+    import numpy as np
+
+    from unsupervised_detection_tpu_torch.train.tf1_bundle import data_path, read_bundle
+    from unsupervised_detection_tpu_torch.train.tf1_export import (export_tf1_checkpoint,
+                                                                   tf1_tensors)
+
+    state = tf1_nets(weights, search_range)
+    want = {k: v for net in (state.generator, state.recover, state.pwc)
+            for k, v in tf1_tensors(net).items()}
+    t0 = time.perf_counter()
+    prefix = export_tf1_checkpoint(state, os.path.join(tmp, f"r{search_range}", "model.ckpt"))
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got = read_bundle(prefix)
+    read_s = time.perf_counter() - t0
+    nbytes = os.path.getsize(prefix + ".index") + os.path.getsize(data_path(prefix))
+    bad = [k for k, v in want.items() if k not in got or got[k].dtype != np.float32
+           or not np.array_equal(got[k], v)]
+    n_values = sum(v.size for v in want.values())
+    log(f"tf1: bundle r={search_range}: {len(got)} variables, {n_values} float32 values, "
+        f"{nbytes} bytes; write {write_s:.3f} s, read {read_s:.3f} s (crc32c included; host) "
+        f"[{card_line()}]")
+    if bad or set(got) != set(want) | {"global_step"} or int(got["global_step"]) != 123:
+        raise AssertionError(f"tf1: bundle r={search_range} round trip: {bad[:5]}, "
+                             f"{sorted(set(got) ^ (set(want) | {'global_step'}))[:5]}")
+    return {"prefix": prefix, "bytes": nbytes, "write_s": write_s, "read_s": read_s}
+
+
+def tf1_eval(tmp: str, root: str, weights: dict, prefix: str, prefix_r2: str,
+             report: dict) -> None:
+    """test_generator on a JPEG tree from the r=4 bundle and from the .npz
+    of the same weights, float32 and bfloat16: the restored state dicts
+    bit-equal, the metrics within METRIC_TOL, 5 + 4 launches per batch; an
+    r=2 bundle at r=4 refused, naming both ranges."""
+    from unsupervised_detection_tpu_torch import test_generator
+    from unsupervised_detection_tpu_torch.train.checkpoint import (load_eval_checkpoint,
+                                                                   save_eval_checkpoint)
+
+    npz = save_eval_checkpoint(os.path.join(tmp, "model.npz"), weights["gen_params"],
+                               weights["gen_stats"], weights["pwc_params"])
+    loaded = {}
+    for kind, path in (("bundle", prefix), ("npz", npz)):
+        t0 = time.perf_counter()
+        loaded[kind] = load_eval_checkpoint(path, TF1_EVAL_RANGE)
+        log(f"tf1: load_eval_checkpoint {kind}: {time.perf_counter() - t0:.3f} s (host)")
+    for got, want in zip(loaded["bundle"], loaded["npz"]):
+        if set(got) != set(want) or not all(torch.equal(got[k], v) for k, v in want.items()):
+            raise AssertionError("tf1: the bundle's state dicts differ from the .npz's")
+    log("tf1: the bundle's and the .npz's state dicts are bit-equal")
+
+    frames = 2 * 10
+    batches = -(-frames // BATCH)
+    flags = [f"--root_dir={root}", f"--pwc_search_range={TF1_EVAL_RANGE}",
+             f"--batch_size={BATCH}", "--test_partition=trainval", "--num_threads=4"]
+    for dn in ("float32", "bfloat16"):
+        res = {}
+        for kind, path in (("bundle", prefix), ("npz", npz)):
+            reset_counts()
+            t0 = time.perf_counter()
+            res[kind], _ = run_captured(test_generator.main, flags + [
+                f"--ckpt_file={path}", f"--compute_dtype={dn}"],
+                prefix=f"tf1: test_generator {dn} {kind}: ")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = expect_counts(f"tf1 test_generator {dn} {kind}", forwards=batches)
+            backward = [launch_counts()[k] for k in (*BACKWARD_KERNELS, "dynamic_copy")]
+            if backward != [0, 0, 0] or res[kind]["frames"] != batches * BATCH:
+                raise AssertionError(f"tf1: {dn} {kind}: launches {launch_counts()}, "
+                                     f"frames {res[kind]['frames']}")
+            if dn == "float32" and kind == "bundle":
+                report["launches_tf1"] = dict(zip(("cost_volume", "warp"), counts))
+            log(f"tf1: test_generator {dn} {kind}: {wall:.2f} s for {res[kind]['frames']} "
+                f"frames (JPEG decode and start-up included) [{card_line()}]")
+        a, b = res["bundle"], res["npz"]
+        diffs = {k: abs(a[k] - b[k]) for k in ("dataset_iou", "dataset_mae")}
+        for kind in ("category_iou", "category_mae"):
+            for cat, v in b[kind].items():
+                diffs[f"{kind}[{cat}]"] = abs(a[kind][cat] - v)
+        log(f"tf1: {dn} bundle vs .npz (dataset IoU {b['dataset_iou']}, MAE "
+            f"{b['dataset_mae']}): max abs diff {max(diffs.values())} (tol {METRIC_TOL}) "
+            f"{json.dumps(diffs)}")
+        if list(a["category_iou"]) != list(b["category_iou"]) or not all(
+                d <= METRIC_TOL for d in diffs.values()):
+            raise AssertionError(f"tf1: {dn} bundle vs .npz metrics: {diffs}")
+        report.setdefault("tf1", {})[f"eval_diff_{dn}"] = max(diffs.values())
+    try:
+        run_captured(test_generator.main, flags + [f"--ckpt_file={prefix_r2}"],
+                     prefix="tf1: refusal: ")
+    except ValueError as err:
+        log(f"tf1: an r=2 bundle at --pwc_search_range={TF1_EVAL_RANGE} refused: {err}")
+        if f"search range 2, but --pwc_search_range={TF1_EVAL_RANGE}" not in str(err):
+            raise
+    else:
+        raise AssertionError("tf1: an r=2 bundle was read at r=4")
+
+
+def tf1_pwc_backend(tmp: str, weights: dict, prefix: str, report: dict) -> None:
+    """pwc_flow_fn from the r=4 bundle against the same net from a PWC scope
+    save, one 192x384 pair, float32 on the card."""
+    import numpy as np
+
+    from unsupervised_detection_tpu_torch.postproc import propagate
+    from unsupervised_detection_tpu_torch.train import checkpoint
+
+    pwc = tf1_nets(weights, TF1_EVAL_RANGE).pwc
+    scope = checkpoint.save_scope(tmp, "pwc-r4", pwc, "pwc_params")
+    rs = np.random.RandomState(5)
+    big = rs.rand(200, 400, 3)
+    for axis in (0, 1):
+        big = (big + np.roll(big, 1, axis) + np.roll(big, -1, axis)) / 3.0
+    im_a, im_b = big[4:196, 8:392], big[2:194, 5:389]
+    from_bundle = propagate.pwc_flow_fn(prefix, search_range=TF1_EVAL_RANGE, device="cuda")
+    from_scope = propagate.pwc_flow_fn(scope, search_range=TF1_EVAL_RANGE, device="cuda")
+    reset_counts()
+    got = from_bundle(im_a, im_b)
+    torch.cuda.synchronize()
+    expect_counts("tf1 pwc_flow_fn from the bundle")
+    want = from_scope(im_a, im_b)
+    top = max(float(np.abs(x).max()) for x in want)
+    err = max(float(np.abs(g - x).max()) for g, x in zip(got, want))
+    log(f"tf1: pwc_flow_fn 192x384 from the bundle vs a scope save: max abs diff {err} of the "
+        f"flow's largest {top} (tol {PWC_FLOW_REL} of it) [{card_line()}]")
+    if not err <= PWC_FLOW_REL * top:
+        raise AssertionError(f"tf1: pwc_flow_fn bundle vs scope save {err} > "
+                             f"{PWC_FLOW_REL} * {top}")
+    report.setdefault("tf1", {})["pwc_flow_diff"] = err
+
+
+def summary_writers():
+    """(tensorboardX's version or None, the writer class the writer run
+    uses): tensorboardX's, which the driver takes; where it does not import
+    (the driver's writer is then None, as in the JAX package), PyTorch's
+    `torch.utils.tensorboard.SummaryWriter` (the same add_* calls, over the
+    `tensorboard` package) stands in, so that the summaries' cost is still
+    measured; None when neither imports."""
+    try:
+        import tensorboardX
+    except ImportError as err:
+        log(f"tf1: tensorboardX does not import here ({err}): the train driver's writer is "
+            "None, as in the JAX package")
+    else:
+        log(f"tf1: tensorboardX {tensorboardX.__version__} imports here")
+        return tensorboardX.__version__, tensorboardX.SummaryWriter
+    try:
+        from torch.utils.tensorboard import SummaryWriter
+    except ImportError as err:
+        log(f"tf1: torch.utils.tensorboard does not import either ({err}): no writer run")
+        return None, None
+    log("tf1: torch.utils.tensorboard's SummaryWriter stands in for tensorboardX in the "
+        "writer run")
+    return None, SummaryWriter
+
+
+def event_tags(path: str) -> dict:
+    """{"scalars", "histograms", "images"}: the summary tags of an event
+    file (TFRecord framing; tensorboardX's protos, or tensorboard's)."""
+    import struct
+
+    try:
+        from tensorboardX.proto import event_pb2
+    except ImportError:
+        from tensorboard.compat.proto import event_pb2
+
+    tags = {"scalars": set(), "histograms": set(), "images": set()}
+    kinds = {"simple_value": "scalars", "histo": "histograms", "image": "images"}
+    with open(path, "rb") as fh:
+        data = fh.read()
+    pos = 0
+    while pos < len(data):
+        (n,) = struct.unpack_from("<Q", data, pos)
+        event = event_pb2.Event.FromString(data[pos + 12:pos + 12 + n])
+        pos += 12 + n + 4
+        for v in event.summary.value:
+            tags[kinds[v.WhichOneof("value")]].add(v.tag)
+    return tags
+
+
+def tf1_train(tmp: str, prefix_r2: str, report: dict) -> None:
+    """The train CLI on a JPEG tree with --flow_ckpt and --recover_ckpt the
+    r=2 bundle and --summary_freq=2; without the writer, with it (its event
+    file's tags checked), and without it again; samples/s of each and the
+    writer's seconds."""
+    import importlib
+    import re
+
+    from unsupervised_detection_tpu_torch.convert import flax_paths
+    from unsupervised_detection_tpu_torch.models import GeneratorNet, RecoverNet
+    from unsupervised_detection_tpu_torch.train import driver
+    from unsupervised_detection_tpu_torch.train.learner import AdversarialLearner
+
+    cli = importlib.import_module("unsupervised_detection_tpu_torch.train.__main__")
+    version, writer_class = summary_writers()
+    root = write_davis_tree(os.path.join(tmp, "davis_train"))
+    flags = [f"--root_dir={root}", f"--pwc_search_range={TF1_TRAIN_RANGE}",
+             f"--batch_size={TRAIN_BATCH}", "--num_threads=4", f"--flow_ckpt={prefix_r2}",
+             f"--recover_ckpt={prefix_r2}", f"--num_samples_train={TF1_SUBSTEPS * TRAIN_BATCH}",
+             "--max_epochs=1", f"--summary_freq={TF1_SUMMARY_FREQ}", "--save_freq=1"]
+    summaries = TF1_SUBSTEPS // TF1_SUMMARY_FREQ
+    val_batches = -(-10 // TRAIN_BATCH)
+    rate = re.compile(rf"\[ *{TF1_SUBSTEPS}/ *{TF1_SUBSTEPS}\] time: \S+ \((\S+) samples/s\)")
+    runs = {}
+    labels = ("no writer", "writer", "no writer again") if writer_class else ("no writer",)
+    for label in labels:
+        ckpt_dir = os.path.join(tmp, "train_" + label.replace(" ", "_"))
+        timer = StageTimer()
+        timer.wrap(driver, "_write_summaries")
+        if label == "writer":      # where the summaries' seconds go
+            timer.wrap(AdversarialLearner, "summary_images")
+            timer.wrap(writer_class, "add_histogram")
+            timer.wrap(writer_class, "add_image")
+        writer = driver._writer
+        driver._writer = writer_class if label == "writer" else (lambda logdir: None)
+        reset_counts()
+        t0 = time.perf_counter()
+        try:
+            _, text = run_captured(cli.main, flags + [f"--checkpoint_dir={ckpt_dir}"],
+                                   prefix=f"tf1: train cli ({label}): ")
+        finally:
+            driver._writer = writer
+            timer.restore()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        written = summaries if label == "writer" else 0
+        expect_counts(f"tf1 train cli ({label})",
+                      forwards=TF1_SUBSTEPS + written + val_batches)
+        if not all(s in text for s in (f"Flow net loaded from {prefix_r2}",
+                                        "Recover net loaded from previous ckpt",
+                                        "Training completed successfully")):
+            raise AssertionError(f"tf1: train cli ({label}): {text[-400:]!r}")
+        m = rate.search(text)
+        run = runs[label] = {"samples_per_s": float(m.group(1)), "wall_s": wall,
+                             "writer_s": timer.seconds.get("_write_summaries", 0.0)}
+        which = f" {writer_class.__module__}.SummaryWriter" if label == "writer" else ""
+        log(f"tf1: train cli ({label}{which}), fp32 r=2 batch {TRAIN_BATCH}, {TF1_SUBSTEPS} "
+            f"sub-steps, summaries every {TF1_SUMMARY_FREQ}: {run['samples_per_s']} samples/s "
+            f"(the driver's rolling rate), {wall:.2f} s wall, {run['writer_s']:.3f} s in "
+            f"_write_summaries [{card_line()}]")
+        if label == "writer":
+            run["parts_s"] = {k: v for k, v in timer.seconds.items() if k != "_write_summaries"}
+            log(f"tf1: of those, in {summaries} summaries (the gradients' and images' copies "
+                f"to the host and the rest are not split out): {json.dumps(run['parts_s'])}")
+        events = [f for f in os.listdir(ckpt_dir) if f.startswith("events.out.tfevents.")]
+        if label != "writer":
+            if events:
+                raise AssertionError(f"tf1: train cli ({label}) wrote {events}")
+            continue
+        tags = event_tags(os.path.join(ckpt_dir, events[0]))
+        want = {"scalars": set(LOSS_KEYS) | {"samples_per_sec", "IoU_on_Validation"},
+                "images": set(SUMMARY_IMAGES), "histograms": {
+                    f"{scope}/{'/'.join(flax_paths(net)[name][1:])}/gradients"
+                    for scope, net in (("MaskNet", GeneratorNet()), ("FlownetS", RecoverNet()))
+                    for name, _ in net.named_parameters()}}
+        log(f"tf1: event file {events[0]}: {len(tags['scalars'])} scalar, "
+            f"{len(tags['histograms'])} histogram, {len(tags['images'])} image tags")
+        if len(events) != 1 or tags != want:
+            raise AssertionError(f"tf1: event tags differ: "
+                                 f"{ {k: sorted(tags[k] ^ want[k])[:6] for k in want} }")
+    report.setdefault("tf1", {})["train"] = runs
+    report["tf1"]["tensorboardX"] = version
+    report["tf1"]["writer"] = writer_class and f"{writer_class.__module__}.SummaryWriter"
+
+
+def phase_tf1(report: dict) -> None:
+    """TF1 bundles at full width: the round trip at r=4 and r=2, the
+    evaluation CLI from a bundle against the .npz of the same weights, the
+    range refusal, the PWC backend from a bundle, and the train CLI from
+    bundles with the TensorBoard writer and without it."""
+    import tempfile
+
+    weights = {r: tf1_weights(r) for r in (TF1_EVAL_RANGE, TF1_TRAIN_RANGE)}
+    with tempfile.TemporaryDirectory() as tmp:
+        trips = {r: tf1_round_trip(tmp, w, r) for r, w in weights.items()}
+        report["tf1"] = {"bundles": {r: {k: v for k, v in t.items() if k != "prefix"}
+                                     for r, t in trips.items()}}
+        root = write_davis_tree(os.path.join(tmp, "davis"))
+        tf1_eval(tmp, root, weights[TF1_EVAL_RANGE], trips[TF1_EVAL_RANGE]["prefix"],
+                 trips[TF1_TRAIN_RANGE]["prefix"], report)
+        tf1_pwc_backend(tmp, weights[TF1_EVAL_RANGE], trips[TF1_EVAL_RANGE]["prefix"], report)
+        tf1_train(tmp, trips[TF1_TRAIN_RANGE]["prefix"], report)
+
+
 def phase_profile(forwards: dict, images, iters: int = 3, top: int = 12) -> None:
     """Device time by kernel over `iters` of the path's forwards at batch 8
     (torch.profiler), and the device's busy share of the profiled window."""
@@ -2080,6 +2425,8 @@ def main() -> int:
             phase_eval(report)
         elif phase == "postproc":
             phase_postproc(report)
+        elif phase == "tf1":
+            phase_tf1(report)
         elif phase == "train":
             phase_train(report)
         elif phase == "pretrain":
@@ -2102,6 +2449,7 @@ def main() -> int:
             "launches": report["launches_pretrain" if backward else "launches"][name],
             "launches_eval": 0 if backward else report["launches_eval"]["float32"][name],
             "launches_postproc": report["launches_postproc"][name],
+            "launches_tf1": report["launches_tf1"].get(name, 0),
             "launches_train": 0 if backward else report["launches_train"][name],
             "launches_pretrain": report["launches_pretrain"][name],
             "max_abs_err": k["max_abs_err"],

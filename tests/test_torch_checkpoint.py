@@ -10,11 +10,14 @@ import numpy as np
 import pytest
 import torch
 
-from torch_parity import PWC_CKPT, GAME_CKPT, PWC_CKPT_SEARCH_RANGE, REPO, committed_checkpoints
+from torch_parity import (GAME_CKPT, PWC_CKPT, PWC_CKPT_SEARCH_RANGE,
+                         REPO, committed_checkpoints, torch_threads)
 from unsupervised_detection_tpu.train import checkpoint as jax_ckpt
 from unsupervised_detection_tpu_torch.convert import from_jax_params, random_jax_params
 from unsupervised_detection_tpu_torch.models import GeneratorNet, PWCNet
 from unsupervised_detection_tpu_torch.train import checkpoint
+
+_threads = torch_threads(2)
 
 
 def _exporter():

@@ -8,9 +8,12 @@ import torch
 
 import jax.numpy as jnp
 
+from torch_parity import torch_threads
 from unsupervised_detection_tpu.ops.cost_volume import _cost_volume_xla
 from unsupervised_detection_tpu.ops.pallas.cost_volume_kernel import cost_volume_pallas
 from unsupervised_detection_tpu_torch.ops.cost_volume import cost_volume, cost_volume_plain
+
+_threads = torch_threads(2)
 
 
 # float32: channel sums of C products in other orders, costs of magnitude

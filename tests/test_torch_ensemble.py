@@ -15,10 +15,9 @@ import types
 import numpy as np
 import pytest
 import scipy.io as sio
-import torch
 
 from synthetic import make_moving_square_davis
-from torch_parity import REPO, committed_checkpoints, moving_square_frames
+from torch_parity import REPO, committed_checkpoints, moving_square_frames, torch_threads
 from unsupervised_detection_tpu.config import Config as JaxConfig
 from unsupervised_detection_tpu.eval.ensemble import EnsembleEvaluator as JaxEnsembleEvaluator
 from unsupervised_detection_tpu.eval.evaluator import Evaluator as JaxEvaluator
@@ -55,17 +54,7 @@ CATEGORY = re.compile(r"^Category (\S+): IoU is (\S+) and MAE is (\S+)$", re.M)
 NUMBER = re.compile(r"\d+(\.\d+)?(e-?\d+)?")
 
 
-@pytest.fixture(scope="module", autouse=True)
-def few_threads():
-    """Two PyTorch CPU threads while this file runs. The tier-1 run puts
-    six workers on the machine's cores, and PyTorch's default of one
-    OpenMP thread per core then oversubscribes them: its small CPU
-    convolutions slowed ~2.6x under five busy neighbours (a dense-path
-    test, 276 s with the default, 107 s with two threads)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(min(n, 2))
-    yield
-    torch.set_num_threads(n)
+_threads = torch_threads(2)
 
 
 @pytest.fixture(scope="module")

@@ -4,6 +4,7 @@ host mode) and SegTrack (host mode) trees, float32, seeded random weights
 at search range 2 with the generator's head scaled up (the sharp head of
 chip_smoke.py) so the masks span [0, 1], batch 8, reader 64x128, working
 32x64. The JAX side runs on the 8 virtual CPU devices of tests/conftest.py.
+The CLI reads a TF1 bundle of the same weights as it reads the `.npz`.
 """
 
 import importlib.util
@@ -13,9 +14,10 @@ import types
 
 import numpy as np
 import pytest
+import torch
 
 from synthetic import make_fbms_tree, make_moving_square_davis, make_segtrack_tree
-from torch_parity import REPO
+from torch_parity import REPO, torch_threads
 from unsupervised_detection_tpu.config import Config as JaxConfig
 from unsupervised_detection_tpu.eval.evaluator import Evaluator as JaxEvaluator
 from unsupervised_detection_tpu.eval.evaluator import evaluate_dataset as jax_evaluate_dataset
@@ -23,9 +25,13 @@ from unsupervised_detection_tpu_torch import Config
 from unsupervised_detection_tpu_torch.convert import from_jax_params, random_jax_params
 from unsupervised_detection_tpu_torch.eval import Evaluator, evaluate_dataset
 from unsupervised_detection_tpu_torch.eval.evaluator import build_test_pipeline
-from unsupervised_detection_tpu_torch.models import GeneratorNet, PWCNet
+from unsupervised_detection_tpu_torch.models import GeneratorNet, PWCNet, RecoverNet
 from unsupervised_detection_tpu_torch.test_generator import main
-from unsupervised_detection_tpu_torch.train.checkpoint import save_eval_checkpoint
+from unsupervised_detection_tpu_torch.train.checkpoint import (load_eval_checkpoint,
+                                                               save_eval_checkpoint)
+from unsupervised_detection_tpu_torch.train.tf1_export import export_tf1_checkpoint
+
+_threads = torch_threads(2)
 
 SIZES = dict(batch_size=8, reader_height=64, reader_width=128, img_height=32, img_width=64,
              pwc_search_range=2, num_threads=2)
@@ -181,6 +187,22 @@ def test_cli_prints_what_the_jmean_tool_parses(trees, ckpt_file, evaluators, cap
     _, _, ev = evaluators
     cfg = Config(**SIZES, root_dir=trees["DAVIS2016"])
     assert evaluate_dataset(cfg, ev, verbose=False) == res
+
+
+def test_cli_reads_a_tf1_bundle_as_the_npz(trees, ckpt_file, weights, tmp_path, capsys):
+    # the same weights as a TF1 bundle (the reference's names, through the
+    # port's writer): the same state dicts and the same metrics, bit for bit
+    state = types.SimpleNamespace(generator=GeneratorNet(), recover=RecoverNet(),
+                                  pwc=PWCNet(search_range=2), step=0)
+    gen_sd, pwc_sd = from_jax_params(*weights)
+    state.generator.load_state_dict(gen_sd)
+    state.pwc.load_state_dict(pwc_sd)
+    bundle = export_tf1_checkpoint(state, str(tmp_path / "model"))
+    for got, want in zip(load_eval_checkpoint(bundle, 2), load_eval_checkpoint(ckpt_file, 2)):
+        assert set(got) == set(want) and all(torch.equal(got[k], v) for k, v in want.items())
+    root = trees["DAVIS2016"]
+    assert main(_flags(root, bundle), device="cpu") == main(_flags(root, ckpt_file), device="cpu")
+    assert "Resume model from checkpoint " + bundle in capsys.readouterr().out
 
 
 def test_cli_failures_match_the_jax_cli(trees, ckpt_file):

@@ -1,5 +1,5 @@
-"""The PyTorch port stands alone: it imports neither JAX nor the JAX
-package, its entry points (the train and pretraining CLIs among them)
+"""The PyTorch port stands alone: it imports neither JAX, the JAX package
+nor TensorFlow, its entry points (the train and pretraining CLIs among them)
 default to the card and raise without one, and its kernel wrappers take the
 plain version only for CPU tensors."""
 
@@ -30,7 +30,7 @@ from unsupervised_detection_tpu_torch.train.pretrain_pwc import pretrain_pwc
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "unsupervised_detection_tpu_torch")
-BLOCKED = ("jax", "jaxlib", "flax", "orbax", "unsupervised_detection_tpu")
+BLOCKED = ("jax", "jaxlib", "flax", "orbax", "unsupervised_detection_tpu", "tensorflow")
 TPU_ONLY = ("use_pallas", "warp_method", "mesh_data", "mesh_model")
 
 
@@ -43,7 +43,7 @@ def _port_sources():
 
 def test_imports_with_jax_blocked():
     # every module of the port, and chip_smoke, import in a fresh process in
-    # which importing JAX, flax, orbax or the JAX package raises
+    # which importing JAX, flax, orbax, the JAX package or TensorFlow raises
     code = f"""
 import importlib, pkgutil, sys
 for name in {BLOCKED!r}:
@@ -66,7 +66,8 @@ print(len(names))
 
 def test_source_scan_finds_no_jax_import():
     pattern = re.compile(
-        r"^\s*(import|from)\s+(jax|jaxlib|flax|orbax|unsupervised_detection_tpu)(\.|\s|$)", re.M)
+        r"^\s*(import|from)\s+(jax|jaxlib|flax|orbax|unsupervised_detection_tpu|tensorflow)"
+        r"(\.|\s|$)", re.M)
     offenders = [p for p in _port_sources() if pattern.search(open(p).read())]
     assert not offenders, offenders
 

@@ -14,12 +14,14 @@ import os
 import numpy as np
 import pytest
 
-from torch_parity import GAME_CKPT, PWC_CKPT, REPO, committed_checkpoints
+from torch_parity import GAME_CKPT, PWC_CKPT, REPO, committed_checkpoints, torch_threads
 from unsupervised_detection_tpu.config import parse_flags as jax_parse_flags
 from unsupervised_detection_tpu.eval.evaluator import Evaluator as JaxEvaluator
 from unsupervised_detection_tpu.eval.evaluator import evaluate_dataset as jax_evaluate_dataset
 from unsupervised_detection_tpu_torch.eval import Evaluator
 from unsupervised_detection_tpu_torch.test_generator import main
+
+_threads = torch_threads(2)
 
 # Raw float32 J-mean of the flagship, dataset and per sequence
 # (experiments/e2e_jmean/REPORT.md:13 and :24-28).

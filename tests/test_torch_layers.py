@@ -11,9 +11,12 @@ import jax
 import jax.numpy as jnp
 from flax import linen as nn
 
+from torch_parity import torch_threads
 from unsupervised_detection_tpu.models import layers as jl
 from unsupervised_detection_tpu_torch.convert import hwio_to_oihw, tf_transpose_kernel_to_torch
 from unsupervised_detection_tpu_torch.models import layers as tl
+
+_threads = torch_threads(2)
 
 # float32 convolutions with fan-in <= ~1.2k summed in other orders (XLA vs
 # oneDNN) on O(1) activations

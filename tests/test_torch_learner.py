@@ -21,7 +21,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from torch_parity import jax_augment_draws, moving_square_frames
+from torch_parity import jax_augment_draws, moving_square_frames, torch_threads
 from unsupervised_detection_tpu.config import Config as JaxConfig
 from unsupervised_detection_tpu.train import learner as jax_learner_mod
 from unsupervised_detection_tpu.train.learner import AdversarialLearner as JaxLearner
@@ -34,15 +34,7 @@ from unsupervised_detection_tpu_torch.train.checkpoint import load_train_state
 from unsupervised_detection_tpu_torch.train.learner import AdversarialLearner
 
 
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    # the tier-1 run puts several test processes on this host's cores; torch
-    # training steps with a thread per core each then crawl (spin-waiting
-    # threads contend for the same cores), so these run on one
-    saved = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(saved)
+_threads = torch_threads(1)
 
 
 B = 4

@@ -8,13 +8,15 @@ import numpy as np
 import pytest
 import torch
 
-from torch_parity import moving_square_frames
+from torch_parity import moving_square_frames, torch_threads
 from unsupervised_detection_tpu.config import Config as JaxConfig
 from unsupervised_detection_tpu.eval.evaluator import Evaluator as JaxEvaluator
 from unsupervised_detection_tpu_torch import Config
 from unsupervised_detection_tpu_torch.convert import from_jax_params, random_jax_params
 from unsupervised_detection_tpu_torch.eval import Evaluator
 from unsupervised_detection_tpu_torch.models import GeneratorNet, PWCNet
+
+_threads = torch_threads(2)
 
 SIZES = dict(batch_size=2, reader_height=128, reader_width=192, img_height=64, img_width=96)
 # PWC needs the flow resolution divisible by 64: 128x256 / 2 = 64x128

@@ -9,13 +9,16 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from torch_parity import PWC_CKPT_SEARCH_RANGE, committed_checkpoints, moving_square_frames
+from torch_parity import (PWC_CKPT_SEARCH_RANGE, committed_checkpoints, moving_square_frames,
+                         torch_threads)
 from unsupervised_detection_tpu.models import GeneratorNet as JaxGenerator
 from unsupervised_detection_tpu.models import PWCNet as JaxPWC
 from unsupervised_detection_tpu.ops.flow import standardize_flow as jax_standardize
 from unsupervised_detection_tpu_torch.convert import from_jax_params, random_jax_params
 from unsupervised_detection_tpu_torch.models import GeneratorNet, PWCNet
 from unsupervised_detection_tpu_torch.ops.flow import standardize_flow
+
+_threads = torch_threads(2)
 
 # float32 through ~40 convolutions (XLA vs oneDNN summation order) and the
 # cost volumes: flows agree to 1e-4 of their largest magnitude, masks (in

@@ -13,7 +13,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from torch_parity import jax_augment_draws
+from torch_parity import jax_augment_draws, torch_threads
 from unsupervised_detection_tpu.config import Config as JaxConfig
 from unsupervised_detection_tpu.ops import augment as jaug
 from unsupervised_detection_tpu.ops.resize import crop_resize_matrices as jax_crop_matrices
@@ -30,15 +30,7 @@ from unsupervised_detection_tpu_torch.train.learner import _clip_or_noise
 from unsupervised_detection_tpu_torch.train.objective import AdversarialObjective
 
 
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    # the tier-1 run puts several test processes on this host's cores; torch
-    # training steps with a thread per core each then crawl (spin-waiting
-    # threads contend for the same cores), so these run on one
-    saved = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(saved)
+_threads = torch_threads(1)
 
 
 B, H, W = 4, 32, 64

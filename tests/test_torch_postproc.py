@@ -2,26 +2,30 @@
 package's, on the CPU: the host copies (permutohedral lattice, dense CRF in
 both engines, soft scores, host propagation, the native pyflow solver) give
 the same bits on the same inputs and one shared buffer tree; `pwc_flow_fn`
-agrees within the stated limit."""
+agrees within the stated limit, and gives the same bits from a TF1 bundle
+of the same weights."""
 
 import os
 
 import numpy as np
 import pytest
 import scipy.io as sio
-import torch
 
-from torch_parity import PWC_CKPT, PWC_CKPT_SEARCH_RANGE, REPO
+from torch_parity import PWC_CKPT, PWC_CKPT_SEARCH_RANGE, REPO, torch_threads
 from unsupervised_detection_tpu.postproc import crf as jcrf
 from unsupervised_detection_tpu.postproc import permutohedral as jperm
 from unsupervised_detection_tpu.postproc import propagate as jprop
 from unsupervised_detection_tpu.postproc import soft_score as jsoft
+from unsupervised_detection_tpu_torch.models import PWCNet
 from unsupervised_detection_tpu_torch.native import densecrf as tdensecrf
 from unsupervised_detection_tpu_torch.native import pyflow as tpyflow
 from unsupervised_detection_tpu_torch.postproc import crf as tcrf
 from unsupervised_detection_tpu_torch.postproc import permutohedral as tperm
 from unsupervised_detection_tpu_torch.postproc import propagate as tprop
 from unsupervised_detection_tpu_torch.postproc import soft_score as tsoft
+from unsupervised_detection_tpu_torch.train.checkpoint import restore_params_scope
+from unsupervised_detection_tpu_torch.train.tf1_bundle import write_bundle
+from unsupervised_detection_tpu_torch.train.tf1_export import tf1_tensors
 
 # pwc_flow_fn: float32 convolutions in other libraries (oneDNN vs XLA)
 # through 5 levels: within 1e-4 of the flow's largest component.
@@ -32,17 +36,7 @@ SHIFTS = (-2, -1, 1, 2)
 CROPS = (85, 90, 95, 100)
 
 
-@pytest.fixture(scope="module", autouse=True)
-def few_threads():
-    """Two PyTorch CPU threads while this file runs. The tier-1 run puts
-    six workers on the machine's cores, and PyTorch's default of one
-    OpenMP thread per core then oversubscribes them: its small CPU
-    convolutions slowed ~2.6x under five busy neighbours (a dense-path
-    test, 276 s with the default, 107 s with two threads)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(min(n, 2))
-    yield
-    torch.set_num_threads(n)
+_threads = torch_threads(2)
 
 
 def _texture(rs, shape):
@@ -272,9 +266,17 @@ def test_pwc_flow_fn_matches_jax(pwc_scope_save):
 
 
 def test_pwc_flow_fn_refuses_tf1_and_other_ranges(pwc_scope_save, tmp_path):
-    tf1 = str(tmp_path / "model")
-    open(tf1 + ".index", "w").close()
-    with pytest.raises(SystemExit, match="TF1 checkpoint"):
-        tprop.pwc_flow_fn(tf1, device="cpu")
-    with pytest.raises(ValueError, match="search range 2"):
-        tprop.pwc_flow_fn(pwc_scope_save, search_range=4, device="cpu")
+    # a TF1 bundle of the same weights gives the same flow, bit for bit;
+    # either checkpoint at another search range is refused, naming both
+    net = PWCNet(search_range=PWC_CKPT_SEARCH_RANGE)
+    restore_params_scope(pwc_scope_save, net, "pwc_params")
+    tf1 = write_bundle(str(tmp_path / "model"), tf1_tensors(net))
+    rs = np.random.RandomState(1)
+    im_a, im_b = _texture(rs, (40, 72, 3)), _texture(rs, (40, 72, 3))
+    want = tprop.pwc_flow_fn(pwc_scope_save, search_range=2, device="cpu")(im_a, im_b)
+    got = tprop.pwc_flow_fn(tf1, search_range=2, device="cpu")(im_a, im_b)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    for ckpt in (tf1, pwc_scope_save):
+        with pytest.raises(ValueError, match="search range 2, but --pwc_search_range=4"):
+            tprop.pwc_flow_fn(ckpt, search_range=4, device="cpu")

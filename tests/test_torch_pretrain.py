@@ -6,7 +6,8 @@
 * the port's version of JAX's `test_pretrain_pwc_reduces_epe`;
 * the chain pretrain_flow -> pretrain_recover -> train -> test_generator
   through the CLIs' `main(argv, device="cpu")` on a synthetic DAVIS tree,
-  and `pretrain_recover`'s refusal without flow weights.
+  and `pretrain_recover` from a TF1 bundle of the flow net, with its
+  refusals without flow weights or with another search range.
 
 Tolerances, fixed before the first run: loss and EPE within 1e-5
 relative (float32 sums over ~8k pixels in other orders); every gradient
@@ -25,6 +26,7 @@ import jax
 import jax.numpy as jnp
 
 from synthetic import make_moving_square_davis
+from torch_parity import torch_threads
 from unsupervised_detection_tpu.models import PWCNet as JaxPWCNet
 from unsupervised_detection_tpu.train import pretrain_pwc as jax_pwc
 from unsupervised_detection_tpu_torch import Config, convert
@@ -33,6 +35,7 @@ from unsupervised_detection_tpu_torch import pretrain_recover as recover_cli
 from unsupervised_detection_tpu_torch import test_generator as eval_cli
 from unsupervised_detection_tpu_torch.models import GeneratorNet, PWCNet
 from unsupervised_detection_tpu_torch.train import checkpoint as ckpt
+from unsupervised_detection_tpu_torch.train import tf1_bundle, tf1_export
 from unsupervised_detection_tpu_torch.train.pretrain_pwc import (PWCPretrainer, pretrain_pwc,
                                                                  pwc_loss, synthetic_flow_batch)
 
@@ -42,14 +45,7 @@ LOSS_RTOL = 1e-5
 GRAD_OF_LARGEST = 1e-4
 
 
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    # several test processes share this host's cores; with a thread per core
-    # each, torch's spin-waiting threads contend, so these run on one
-    saved = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(saved)
+_threads = torch_threads(1)
 
 
 def _grad_gaps(got: dict, want: dict) -> dict:
@@ -225,10 +221,20 @@ def test_pretrain_recover_refuses_without_flow_weights(davis_root, tmp_path):
     flags = [f"--root_dir={davis_root}", "--pretrain_steps=1"] + SIZES
     with pytest.raises(SystemExit, match="needs --flow_ckpt"):
         recover_cli.main(flags, device="cpu")
-    tf1 = str(tmp_path / "model.ckpt-100")
-    open(tf1 + ".index", "w").close()
-    with pytest.raises(SystemExit, match="TF1 checkpoint"):
-        recover_cli.main(flags + [f"--flow_ckpt={tf1}"], device="cpu")
+    # a TF1 bundle of the flow net restores bit for bit and the stage runs
+    # on it; one of another search range is refused, naming both
+    torch.manual_seed(4)
+    pwc = PWCNet(search_range=2)
+    tf1 = tf1_bundle.write_bundle(str(tmp_path / "tf1" / "model.ckpt-100"),
+                                  tf1_export.tf1_tensors(pwc))
+    restored = PWCNet(search_range=2)
+    ckpt.restore_params_scope(tf1, restored, "pwc_params")
+    assert all(torch.equal(restored.state_dict()[k], v) for k, v in pwc.state_dict().items())
+    recover = recover_cli.main(flags + [f"--flow_ckpt={tf1}", "--num_threads=2"], device="cpu")
+    assert all(bool(torch.isfinite(p).all()) for p in recover.parameters())
+    with pytest.raises(ValueError, match="search range 2, but --pwc_search_range=4"):
+        recover_cli.main([f for f in flags if "search_range" not in f]
+                         + ["--pwc_search_range=4", f"--flow_ckpt={tf1}"], device="cpu")
     # a flow save of another search range is refused, not silently misread
     other = str(tmp_path / "pwc-r4")
     ckpt.save_scope(str(tmp_path), "pwc-r4", PWCNet(search_range=4), "pwc_params")

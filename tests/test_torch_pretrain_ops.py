@@ -28,7 +28,7 @@ import jax
 import jax.numpy as jnp
 import optax
 
-from torch_parity import clamp_flow
+from torch_parity import clamp_flow, torch_threads
 from unsupervised_detection_tpu.config import Config as JaxConfig
 from unsupervised_detection_tpu.ops.cost_volume import _cost_volume_xla
 from unsupervised_detection_tpu.ops.losses import charbonnier_loss as jax_charbonnier
@@ -50,14 +50,7 @@ from unsupervised_detection_tpu_torch.train.pretrain_pwc import (boundary_band, 
 
 
 
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    # several test processes share this host's cores; with a thread per core
-    # each, torch's spin-waiting threads contend, so these run on one
-    saved = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(saved)
+_threads = torch_threads(1)
 
 
 VJP_REL = 1e-5

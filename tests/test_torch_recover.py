@@ -11,7 +11,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from torch_parity import assert_trees_equal
+from torch_parity import assert_trees_equal, torch_threads
 from unsupervised_detection_tpu.models import RecoverNet as JaxRecoverNet
 from unsupervised_detection_tpu.models import layers as jl
 from unsupervised_detection_tpu.ops.losses import charbonnier_loss as jax_charbonnier
@@ -21,15 +21,7 @@ from unsupervised_detection_tpu_torch.models import layers as tl
 from unsupervised_detection_tpu_torch.ops.losses import charbonnier_loss
 
 
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    # the tier-1 run puts several test processes on this host's cores; torch
-    # training steps with a thread per core each then crawl (spin-waiting
-    # threads contend for the same cores), so these run on one
-    saved = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(saved)
+_threads = torch_threads(1)
 
 
 # float32: conv sums in other orders (XLA vs oneDNN), fan-in <= ~3.5k, on

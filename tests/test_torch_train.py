@@ -2,39 +2,36 @@
 bit-equal to the JAX pipeline's (raw and host mode), training saves
 (round trip, `latest_checkpoint`, pruning to 40), an interrupted and
 resumed run against an uninterrupted one, the exporter on the committed
-game save, the train CLI on a synthetic tree with `test_generator` reading
-its `model.best`, and the CLI's refusals."""
+game save, the train CLI on a synthetic tree from TF1 bundles of the flow
+and recover nets, with its TensorBoard summaries under the JAX driver's
+tags and `test_generator` reading its `model.best`, and the CLI's
+refusals."""
 
 import importlib
 import importlib.util
 import os
+import struct
 
 import numpy as np
 import pytest
 import torch
 
 from synthetic import make_moving_square_davis, make_segtrack_tree
-from torch_parity import GAME_CKPT, PWC_CKPT, REPO, assert_trees_equal
+from torch_parity import GAME_CKPT, PWC_CKPT, REPO, assert_trees_equal, torch_threads
 from unsupervised_detection_tpu import data as jdata
 from unsupervised_detection_tpu.train import checkpoint as jax_ckpt
 from unsupervised_detection_tpu_torch import Config, convert, data
 from unsupervised_detection_tpu_torch import test_generator as eval_cli
+from unsupervised_detection_tpu_torch.models import GeneratorNet, PWCNet, RecoverNet
 from unsupervised_detection_tpu_torch.train import checkpoint as ckpt
+from unsupervised_detection_tpu_torch.train import tf1_bundle, tf1_export
 from unsupervised_detection_tpu_torch.train.driver import train
 from unsupervised_detection_tpu_torch.train.learner import AdversarialLearner
 
 train_cli = importlib.import_module("unsupervised_detection_tpu_torch.train.__main__")
 
 
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    # the tier-1 run puts several test processes on this host's cores; torch
-    # training steps with a thread per core each then crawl (spin-waiting
-    # threads contend for the same cores), so these run on one
-    saved = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(saved)
+_threads = torch_threads(1)
 
 
 READER = dict(img_height=32, img_width=64, reader_height=64, reader_width=128)
@@ -221,16 +218,72 @@ def _cli_flags(root, ckpt_dir):
             "--reader_height=64", "--reader_width=128"]
 
 
+def _tf1_scope(prefix, net):
+    """A TF1 bundle of one port network's weights under the reference's
+    names."""
+    return tf1_bundle.write_bundle(prefix, tf1_export.tf1_tensors(net))
+
+
+def _event_tags(path):
+    """{"scalars", "histograms", "images"}: the tags of an event file's
+    summaries, read with tensorboardX's protos (TFRecord framing: length,
+    its crc, the record, its crc)."""
+    from tensorboardX.proto import event_pb2
+
+    tags = {"scalars": set(), "histograms": set(), "images": set()}
+    data, pos = open(path, "rb").read(), 0
+    while pos < len(data):
+        (n,) = struct.unpack_from("<Q", data, pos)
+        event = event_pb2.Event.FromString(data[pos + 12:pos + 12 + n])
+        pos += 12 + n + 4
+        for v in event.summary.value:
+            kind = v.WhichOneof("value")
+            tags[{"simple_value": "scalars", "histo": "histograms", "image": "images"}[kind]].add(
+                v.tag)
+    return tags
+
+
+LOSS_KEYS = ("generator", "recover", "red_rate", "red_rate_compl", "reconstruction_loss",
+             "reconstruction_compl_loss", "denominator_red_rate",
+             "denominator_red_rate_compl")
+SUMMARY_IMAGES = ("input_image", "next_image", "masked_flow", "PWC_Flow", "Rec_flow",
+                  "Rec_flow_compl")
+
+
 def test_train_cli_then_test_generator(davis_root, tmp_path, capsys):
+    # the flow and recover nets come from TF1 bundles; a TF1 --recover_ckpt
+    # is restored, where the JAX driver skips it (its checkpoint_exists asks
+    # for a directory)
+    torch.manual_seed(5)
+    pwc, recover = PWCNet(search_range=2), RecoverNet()
+    flow_ckpt = _tf1_scope(str(tmp_path / "pwc" / "model"), pwc)
+    recover_ckpt = _tf1_scope(str(tmp_path / "rec" / "model.ckpt-100"), recover)
     ckpt_dir = str(tmp_path / "ck")
-    state = train_cli.main(_cli_flags(davis_root, ckpt_dir) + ["--allow_random_flow"],
-                           device="cpu")
+    state = train_cli.main(_cli_flags(davis_root, ckpt_dir) + [
+        f"--flow_ckpt={flow_ckpt}", f"--recover_ckpt={recover_ckpt}"], device="cpu")
     out = capsys.readouterr().out
+    assert f"Flow net loaded from {flow_ckpt}" in out
+    assert "Recover net loaded from previous ckpt" in out
     assert "Training completed successfully" in out
     assert "Epoch: [ 1] [    2/    2] time: " in out and "loss_generator: " in out
     assert "Epoch [1] Validation IoU: " in out
-    assert sorted(os.listdir(ckpt_dir)) == ["model-1", "model.best"]
+    events = [f for f in os.listdir(ckpt_dir) if f.startswith("events.out.tfevents.")]
+    assert len(events) == 1
+    assert sorted(set(os.listdir(ckpt_dir)) - set(events)) == ["model-1", "model.best"]
     assert (state.gen_opt.count, state.rec_opt.count) == (2, 0)
+    # the generator alone stepped: PWC (frozen) and the recover net keep the
+    # bundles' weights, bit for bit
+    for net, src in ((state.pwc, pwc), (state.recover, recover)):
+        assert all(torch.equal(net.state_dict()[k], v) for k, v in src.state_dict().items())
+    # the summaries of both sub-steps (generator steps) under the JAX
+    # driver's tags: gradient histograms named by the flax paths
+    tags = _event_tags(os.path.join(ckpt_dir, events[0]))
+    assert tags["scalars"] == set(LOSS_KEYS) | {"samples_per_sec", "IoU_on_Validation"}
+    paths = convert.flax_paths(GeneratorNet())
+    assert tags["histograms"] == {f"MaskNet/{'/'.join(paths[name][1:])}/gradients"
+                                  for name, _ in GeneratorNet().named_parameters()}
+    assert "MaskNet/conv13_upsample/conv/conv/kernel/gradients" in tags["histograms"]
+    assert tags["images"] == set(SUMMARY_IMAGES)
     results = eval_cli.main([f"--root_dir={davis_root}",
                               f"--ckpt_file={ckpt_dir}/model.best", "--batch_size=8",
                               "--pwc_search_range=2", "--img_height=32", "--img_width=64",
@@ -246,10 +299,14 @@ def test_train_cli_refusals(davis_root, tmp_path):
     for mesh in ("--mesh_data=2", "--mesh_model=2"):
         with pytest.raises(SystemExit, match="no mesh"):
             train_cli.main(flags + [mesh, "--allow_random_flow"], device="cpu")
-    tf1 = str(tmp_path / "model.ckpt-100")
-    open(tf1 + ".index", "w").close()
-    with pytest.raises(SystemExit, match="TF1 checkpoint"):
+    # TF1 bundles: a flow bundle of another search range, and a resume from
+    # one (a resume reads the port's training saves, as JAX reads its own)
+    tf1 = _tf1_scope(str(tmp_path / "model.ckpt-100"), PWCNet(search_range=4))
+    with pytest.raises(ValueError, match="search range 4, but --pwc_search_range=2"):
         train_cli.main(flags + [f"--flow_ckpt={tf1}"], device="cpu")
+    with pytest.raises(SystemExit, match="is a TF1 bundle"):
+        train_cli.main(flags + ["--allow_random_flow", "--resume_train",
+                                f"--full_model_ckpt={tf1}"], device="cpu")
     with pytest.raises(SystemExit, match="Found no checkpoint to resume"):
         train_cli.main(flags + ["--allow_random_flow", "--resume_train",
                                 f"--checkpoint_dir={tmp_path / 'empty'}"], device="cpu")

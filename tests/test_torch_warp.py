@@ -9,11 +9,13 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from torch_parity import clamp_flow
+from torch_parity import clamp_flow, torch_threads
 from unsupervised_detection_tpu.ops.pallas.warp_kernel import (
     warp_window_pallas, window_overflow_blocks)
 from unsupervised_detection_tpu.ops.warp import _warp_quad
 from unsupervised_detection_tpu_torch.ops.warp import dense_image_warp, warp_plain
+
+_threads = torch_threads(2)
 
 
 @pytest.mark.parametrize("shape", [(2, 12, 20, 128), (2, 24, 40, 32), (1, 7, 9, 3)])

@@ -1,15 +1,35 @@
 """Shared inputs for the PyTorch-port parity tests (tests/test_torch_*.py):
 seeded numpy frames, flax-layout weights, the committed checkpoints, JAX's
-augmentation draws, and a tree comparison."""
+augmentation draws, a tree comparison, and the thread limit of the port's
+test files."""
 
 import os
 
 import numpy as np
+import pytest
+import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GAME_CKPT = os.path.join(REPO, "experiments", "game_state_v2lr", "model.best")
 PWC_CKPT = os.path.join(REPO, "experiments", "pwc_ckpt_v2", "pwc-final")
 PWC_CKPT_SEARCH_RANGE = 2   # every committed PWC checkpoint uses range 2
+
+
+def torch_threads(n):
+    """A module-scoped autouse fixture that holds PyTorch to `n` CPU threads
+    while a test file runs; a file takes it as `_threads = torch_threads(n)`.
+    The tier-1 run puts six test processes on the host's cores, and
+    PyTorch's default of one OpenMP thread per core then oversubscribes them:
+    its spin-waiting threads contend, and small CPU convolutions and
+    training steps crawl (a dense-path test took 276 s with the default,
+    107 s with two threads)."""
+    @pytest.fixture(scope="module", autouse=True)
+    def _torch_threads():
+        saved = torch.get_num_threads()
+        torch.set_num_threads(min(saved, n))
+        yield
+        torch.set_num_threads(saved)
+    return _torch_threads
 
 
 def moving_square_frames(b, h, w, seed=0, shift=(2, 3), square=None):

@@ -1,5 +1,6 @@
-"""Build one of the repository's native C++ sources into a shared library
-with g++ and load it with ctypes.
+"""Build one of the repository's native C++ sources, or one of the port's
+own (`native/crc32c.cpp` of this package), into a shared library with g++
+and load it with ctypes.
 
     g++ -O3 -fPIC -std=c++17 -Wall -march=native -shared \\
         -o unsupervised_detection_tpu_torch/build/lib<name>_<hash>.so native/<dir>/<file>.cpp
@@ -23,14 +24,15 @@ import subprocess
 from ..ops._build import BUILD_DIR, PACKAGE_DIR
 
 NATIVE_DIR = os.path.join(os.path.dirname(PACKAGE_DIR), "native")
+PORT_NATIVE_DIR = os.path.dirname(os.path.abspath(__file__))
 CXX_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-Wall", "-march=native")
 
 
-def load_library(source: str, name: str) -> ctypes.CDLL:
-    """`native/<source>` built (once per source and flags) and loaded.
-    Raises RuntimeError when the source or g++ is missing or the build
-    fails."""
-    src = os.path.join(NATIVE_DIR, source)
+def load_library(source: str, name: str, root: str = NATIVE_DIR) -> ctypes.CDLL:
+    """`<root>/<source>` (the repository's `native/`, or PORT_NATIVE_DIR)
+    built (once per source and flags) and loaded. Raises RuntimeError when
+    the source or g++ is missing or the build fails."""
+    src = os.path.join(root, source)
     if not os.path.isfile(src):
         raise RuntimeError(f"native source {src} not found")
     with open(src, "rb") as fh:

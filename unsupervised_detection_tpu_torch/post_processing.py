@@ -11,7 +11,8 @@ working resolution -> optional CRF at the original 854x480 resolution
 `python -m unsupervised_detection_tpu_torch.test_generator_ensemble` writes
 for the temporal shifts -2, -1, 1 and 2 (`<path_buffer>/davis_shift_<s>`).
 `--flow_backend=pwc` runs the port's PWC net on the card (`--flow_ckpt`: a
-PWC scope save or a training save of the port); `auto` takes the native
+PWC scope save or a training save of the port, or a TF1 bundle's prefix);
+`auto` takes the native
 pyflow solver where g++ builds it, else Farneback.
 """
 
@@ -43,8 +44,8 @@ def _parser() -> argparse.ArgumentParser:
                              "the port's own flow net on the card "
                              "(requires --flow_ckpt)")
     parser.add_argument("--flow_ckpt", default="",
-                        help="PWC scope save or training save of the port "
-                             "for --flow_backend=pwc")
+                        help="PWC scope save or training save of the port, or "
+                             "a TF1 bundle's prefix, for --flow_backend=pwc")
     parser.add_argument("--pwc_search_range", type=int, default=4,
                         help="cost-volume search range the --flow_ckpt was "
                              "trained with (pretrain_flow's --pwc_search_range)")

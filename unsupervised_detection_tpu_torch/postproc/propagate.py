@@ -90,14 +90,12 @@ def pwc_flow_fn(ckpt_path: str, search_range: int = 4, device=None):
     points into im_b: u = F[..., 1], v = F[..., 0]. Frames ((H, W, 3) in
     [0, 1]) are reflect-padded to a multiple of 2**pyr_lvls and the flow is
     cropped back (numpy's "reflect", repeated where the pad reaches past the
-    frame). `ckpt_path` is a PWC scope save of the port or a full
-    training save; its search range must be `search_range`. A TF1
-    checkpoint is refused. The weights load once; the net takes every
-    padded shape."""
+    frame). `ckpt_path` is a PWC scope save of the port, a full training
+    save or a TF1 bundle's prefix (the reference's PWC bundles are r=4);
+    its search range must be `search_range`. The weights load once; the net
+    takes every padded shape."""
     from ..train.checkpoint import restore_params_scope
-    from ..train.driver import _refuse_tf1
 
-    _refuse_tf1(ckpt_path)
     dev = resolve_device(device)
     pwc = PWCNet(search_range=search_range).to(dev).eval()
     restore_params_scope(ckpt_path, pwc, "pwc_params")

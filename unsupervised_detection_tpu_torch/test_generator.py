@@ -5,8 +5,10 @@ test_generator.py with the same flag surface and summary lines:
         --root_dir=DAVIS --ckpt_file=model.npz --pwc_search_range=2 ...
 
 `--ckpt_file` is an evaluation checkpoint written by
-tools/export_torch_checkpoint.py, or a training save of the port
-(`model.best`, `model-<epoch>`) as it is. Prints per-category and dataset
+tools/export_torch_checkpoint.py, a training save of the port
+(`model.best`, `model-<epoch>`) as it is, or the prefix of a TF1 bundle of
+the reference (its published models, or `train/tf1_export.py`'s), read
+without TensorFlow. Prints per-category and dataset
 IoU/MAE. With `--generate_visualization --test_save_dir=DIR` the dense path
 also writes each frame's overlay PNG and `result_<n>.mat` under
 DIR/<category>.

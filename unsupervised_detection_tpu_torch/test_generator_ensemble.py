@@ -13,8 +13,8 @@ the mean over its crops. With `--generate_visualization --test_save_dir=DIR`
 it writes DIR/<category>/result_<n>.mat with the keys img_1_XXX,
 pred_mask_XXX and gt_mask_XXX per crop (XXX = 085, 090, 095, 100): the
 buffers that `python -m unsupervised_detection_tpu_torch.post_processing`
-reads. `--ckpt_file` is an evaluation checkpoint or a training save of the
-port. Runs on the card.
+reads. `--ckpt_file` is an evaluation checkpoint, a training save of the port
+or a TF1 bundle's prefix. Runs on the card.
 """
 
 from __future__ import annotations

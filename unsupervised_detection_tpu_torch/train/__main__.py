@@ -6,7 +6,10 @@ train.py with the same flag surface:
 
 Runs on the card. `--flow_ckpt` (and `--recover_ckpt`, `--full_model_ckpt`)
 name the port's `.npz` saves (train/checkpoint.py; tools/
-export_torch_checkpoint.py writes them from JAX checkpoints). `--seed`
+export_torch_checkpoint.py writes them from JAX checkpoints); `--flow_ckpt`
+and `--recover_ckpt` also take a TF1 bundle's prefix. With a
+`--checkpoint_dir` and `tensorboardX` installed, TensorBoard summaries go
+there too. `--seed`
 seeds the nets' initial weights, the train pipeline's shuffle and the
 torch.Generator of the augmentation and gradient-noise draws.
 """

@@ -16,6 +16,10 @@ range as `pwc_search_range`. numpy reads it on a host without JAX or orbax.
 * A scope save holds one tree (`pwc_params` or `rec_params`): what
   `--flow_ckpt` and `--recover_ckpt` name.
 
+Where the JAX package reads the reference's TF1 checkpoints (an evaluation
+checkpoint, `--flow_ckpt`, `--recover_ckpt`), the loaders here read a TF1
+bundle's prefix too, through train/tf1_import.py.
+
 Loading goes through convert.py's maps, the functions the parity tests
 hold; the training side keeps the JAX package's three-scope semantics
 (train/checkpoint.py:28-114 there): full saves with pruning to the
@@ -34,6 +38,8 @@ import torch
 from ..convert import (flax_trees, from_jax_params, from_jax_train_state, pwc_state_dict,
                        recover_state_dict)
 from .optim import AdamState
+from .tf1_bundle import read_bundle
+from .tf1_import import is_tf_checkpoint, load_tf1_eval, tf1_state_dict
 
 TREES = ("gen_params", "gen_stats", "pwc_params")
 TRAIN_ENTRIES = ("rec_params", "gen_opt", "rec_opt", "step", "rng")
@@ -125,8 +131,11 @@ def load_eval_trees(path: str):
 
 def load_eval_checkpoint(path: str, search_range: int):
     """(gen_state_dict, pwc_state_dict) for the port's models from an
-    evaluation checkpoint. Raises when the file's PWC search range is not
-    `search_range` (the models are built for one range)."""
+    evaluation checkpoint, a training save or a TF1 bundle's prefix. Raises
+    when the checkpoint's PWC search range is not `search_range` (the models
+    are built for one range)."""
+    if is_tf_checkpoint(path):
+        return load_tf1_eval(path, search_range)
     gen_params, gen_stats, pwc_params, file_range = load_eval_trees(path)
     _check_range(path, file_range, search_range)
     return from_jax_params(gen_params, gen_stats, pwc_params)
@@ -227,7 +236,11 @@ def restore_checkpoint(path: str, state):
 
 def restore_params_scope(path: str, net: torch.nn.Module, attr: str) -> None:
     """Load one net's parameters, `attr` ("pwc_params" or "rec_params"),
-    from a full save or a scope save into `net` in place."""
+    from a full save, a scope save or a TF1 bundle's prefix into `net` in
+    place."""
+    if is_tf_checkpoint(path):
+        net.load_state_dict(tf1_state_dict(read_bundle(path), net, path))
+        return
     to_state_dict = {"pwc_params": pwc_state_dict, "rec_params": recover_state_dict}[attr]
     trees = load_trees(path)
     if not trees.get(attr):

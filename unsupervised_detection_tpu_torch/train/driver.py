@@ -5,10 +5,18 @@ restore (mandatory flow weights, optional recover warm start, resume), the
 validation IoU at each epoch's end with `model.best` and `model-<epoch>`
 saves, and an epoch of ceil(num_samples_train / batch_size) sub-steps.
 
-The JAX driver's TensorBoard scalars, gradient histograms and summary
-images are left out (they need the flow colorizer, which the port does not
-have yet), and TF1 checkpoints are refused: the port reads its own `.npz`
-saves, which tools/export_torch_checkpoint.py writes from JAX ones.
+With a checkpoint directory and `tensorboardX` installed, TensorBoard
+summaries go there as the JAX driver writes them: every `summary_freq`
+sub-steps the losses, `samples_per_sec`, a histogram of each applied
+gradient of the stepped net (`{MaskNet|FlownetS}/<flax path>/gradients`)
+and the learner's six summary images; the validation IoU per epoch. Without
+`tensorboardX` the writer is None and nothing is written, as in JAX.
+
+`--flow_ckpt` and `--recover_ckpt` take the port's saves or a TF1 bundle's
+prefix (train/tf1_import.py). A TF1 `--recover_ckpt` is restored, where the
+JAX driver skips it: its `checkpoint_exists` asks for a directory
+(train/driver.py:110-111, train/checkpoint.py:113-114 there).
+`--full_model_ckpt` reads the port's training saves only.
 """
 
 from __future__ import annotations
@@ -18,13 +26,16 @@ import os
 import time
 from typing import Optional
 
+import numpy as np
 import torch
 
 from ..config import Config
+from ..convert import flax_paths
 from ..data import TestPipeline, TrainPipeline, get_reader
 from ..device import resolve_device
 from . import checkpoint as ckpt
 from .learner import AdversarialLearner
+from .tf1_import import is_tf_checkpoint
 
 
 class StepTimer:
@@ -49,12 +60,34 @@ class StepTimer:
         return self.batch_size * len(self._times) / sum(self._times)
 
 
-def _refuse_tf1(path: str) -> None:
-    if os.path.isfile(path + ".index"):
-        raise SystemExit(
-            f"{path} is a TF1 checkpoint, which the PyTorch port does not read: import it "
-            "with the JAX package (train/tf1_import.py) and export that save with "
-            "tools/export_torch_checkpoint.py")
+def _writer(logdir: str):
+    """A tensorboardX SummaryWriter on `logdir`, or None when tensorboardX
+    does not import (as the JAX driver)."""
+    try:
+        from tensorboardX import SummaryWriter
+    except ImportError:
+        return None
+    return SummaryWriter(logdir)
+
+
+def _write_summaries(writer, learner: AdversarialLearner, state, losses: dict, grads,
+                     is_gen: bool, samples_per_sec: float, img1, img2) -> None:
+    """The JAX driver's summaries of one sub-step (train/driver.py:158-177
+    there), at the shared step: the losses, the throughput, one histogram
+    per applied gradient of the stepped net under its flax path, and the
+    summary images in HWC."""
+    gs = state.step
+    for key, value in losses.items():
+        writer.add_scalar(key, float(value), gs)
+    writer.add_scalar("samples_per_sec", samples_per_sec, gs)
+    net, scope = (state.generator, "MaskNet") if is_gen else (state.recover, "FlownetS")
+    paths = flax_paths(net)
+    for (name, _), grad in zip(net.named_parameters(), grads):
+        writer.add_histogram(f"{scope}/{'/'.join(paths[name][1:])}/gradients",
+                             grad.float().cpu().numpy(), gs)
+    for key, img in learner.summary_images(state, img1, img2).items():
+        writer.add_image(key, np.clip(img[0].cpu().numpy() + 0.5, 0.0, 1.0), gs,
+                         dataformats="HWC")
 
 
 def train(config: Config, max_cycles: Optional[int] = None, verbose: bool = True,
@@ -73,9 +106,10 @@ def train(config: Config, max_cycles: Optional[int] = None, verbose: bool = True
             "No checkpoint for the flow network provided (--flow_ckpt). "
             "Pass --allow_random_flow to train against a randomly "
             "initialized PWC net anyway (synthetic/test runs only).")
-    for path in (config.flow_ckpt, config.recover_ckpt, config.full_model_ckpt):
-        if path:
-            _refuse_tf1(path)
+    if config.resume_train and is_tf_checkpoint(config.full_model_ckpt):
+        raise SystemExit(f"--full_model_ckpt={config.full_model_ckpt} is a TF1 bundle: a "
+                         "resume reads the port's training saves (the JAX driver does not "
+                         "read TF1 there either)")
     device = resolve_device(device)
 
     reader = get_reader(config.dataset, config.root_dir,
@@ -119,7 +153,7 @@ def train(config: Config, max_cycles: Optional[int] = None, verbose: bool = True
         ckpt.restore_checkpoint(path, state)
         if verbose:
             print("Resumed training from model {}".format(path))
-    elif ckpt.checkpoint_exists(config.recover_ckpt):
+    elif ckpt.checkpoint_exists(config.recover_ckpt) or is_tf_checkpoint(config.recover_ckpt):
         ckpt.restore_params_scope(config.recover_ckpt, state.recover, "rec_params")
         if verbose:
             print("Recover net loaded from previous ckpt")
@@ -134,6 +168,7 @@ def train(config: Config, max_cycles: Optional[int] = None, verbose: bool = True
         print("Training {} Recover and {} Generator".format(config.iters_rec, config.iters_gen))
         print("-------------------------------------")
 
+    writer = _writer(config.checkpoint_dir) if config.checkpoint_dir else None
     train_iter = iter(train_pipe)
     timer = StepTimer(config.batch_size)
     sub_step = 0
@@ -142,7 +177,8 @@ def train(config: Config, max_cycles: Optional[int] = None, verbose: bool = True
             sub_step += 1
             img1, img2 = learner.feeder.images(next(train_iter))
             start_time = time.time()
-            state, losses, _ = learner.select_step(sub_step)(state, img1, img2)
+            step = learner.select_step(sub_step)
+            state, losses, grads = step(state, img1, img2)
             if sub_step % sum_iters == 0:
                 state = learner.incr_step(state)
             timer.tick()
@@ -162,6 +198,10 @@ def train(config: Config, max_cycles: Optional[int] = None, verbose: bool = True
                           "loss_generator: %4.4f loss_recover %4.4f"
                           % (epoch, epoch_step, steps_per_epoch, time.time() - start_time,
                              timer.frames_per_second, loss_gen, loss_rec))
+                if writer is not None:
+                    _write_summaries(writer, learner, state, losses, grads,
+                                     step == learner.generator_step, timer.frames_per_second,
+                                     img1, img2)
 
             if sub_step % steps_per_epoch == 0:
                 epoch = sub_step // steps_per_epoch
@@ -169,6 +209,8 @@ def train(config: Config, max_cycles: Optional[int] = None, verbose: bool = True
                 val_iou /= val_pipe.num_steps * config.batch_size
                 if verbose:
                     print("Epoch [{}] Validation IoU: {}".format(epoch, val_iou))
+                if writer is not None:
+                    writer.add_scalar("IoU_on_Validation", val_iou, epoch)
                 if config.checkpoint_dir:
                     if val_iou > min_val_iou:
                         ckpt.save_best(config.checkpoint_dir, state)
@@ -186,6 +228,8 @@ def train(config: Config, max_cycles: Optional[int] = None, verbose: bool = True
                 break
     finally:
         train_iter.close()
+        if writer is not None:
+            writer.close()
     return state
 
 

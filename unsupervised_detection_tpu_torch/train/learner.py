@@ -13,10 +13,8 @@ models/adversarial_learner.py:206-448) on one device, without a mesh:
     through the recover net to the mask;
   * per-element clipping to +-clip and the generator's vanishing-gradient
     noise (loss_utils.py:7-32); `select_step` is the reference's 1:3
-    alternation.
-
-The JAX learner's TensorBoard summary images need the flow colorizer, which
-the port does not have yet, and are left out.
+    alternation;
+  * `summary_images` gives the driver's TensorBoard images.
 """
 
 from __future__ import annotations
@@ -30,7 +28,9 @@ from ..device import precision_scope
 from ..data.device_input import DeviceFeeder
 from ..models import GeneratorNet, PWCNet, RecoverNet
 from ..ops.augment import augment_pair, sample_augment
-from ..ops.resize import central_crop_resize
+from ..ops.flow import flow_to_image_summary
+from ..ops.metrics import disambiguate_forward_background
+from ..ops.resize import central_crop_resize, resize_bilinear
 from .objective import AdversarialObjective
 from .optim import AdamState, adam_apply, adam_init
 
@@ -156,6 +156,26 @@ class AdversarialLearner:
                 img2 = central_crop_resize(img2, cfg.test_crop)
                 gt_masks = central_crop_resize(gt_masks, cfg.test_crop)
             return self.objective.validation_iou(img1, img2, gt_masks).sum()
+
+    @torch.no_grad()
+    def summary_images(self, state: TrainState, img1: torch.Tensor,
+                       img2: torch.Tensor) -> dict[str, torch.Tensor]:
+        """The image summaries of the batch's first pair (the reference's
+        collect_summaries, adversarial_learner.py:260-281), (1, h, w, 3)
+        float32 in [-0.5, 0.5] on the device: the inputs, the PWC flow
+        colorized and masked by the foreground, and the recover net's flow
+        and its complement colorized."""
+        cfg = self.config
+        img1, img2 = img1[:1], img2[:1]
+        with precision_scope(self.dtype):
+            out = self.objective.forward(img1, img2)
+            next_image = resize_bilinear(img2, (cfg.img_height, cfg.img_width))
+        pwc_viz = flow_to_image_summary(out.flow.float())
+        fg = disambiguate_forward_background(out.mask.float())
+        return {"input_image": out.image.float(), "next_image": next_image.float(),
+                "masked_flow": pwc_viz * (1.0 - fg), "PWC_Flow": pwc_viz,
+                "Rec_flow": flow_to_image_summary(out.pred_flow.float()),
+                "Rec_flow_compl": flow_to_image_summary(out.pred_flow_compl.float())}
 
     def select_step(self, sub_step: int):
         """The reference alternation (adversarial_learner.py:386-389):

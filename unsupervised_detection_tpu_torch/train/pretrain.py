@@ -23,7 +23,6 @@ from ..data.device_input import DeviceFeeder
 from ..device import precision_scope
 from ..ops.losses import charbonnier_loss
 from . import checkpoint as ckpt
-from .driver import _refuse_tf1
 from .objective import AdversarialObjective
 from .optim import OptaxAdam
 
@@ -125,8 +124,8 @@ def pretrain_recover(config: Config, steps: int, verbose: bool = True, save_ever
     """Train the recover net on box-occlusion inpainting on `device` (None =
     the card; raises without one); returns the recover net.
 
-    PWC weights come from `--flow_ckpt` (a scope save of `pretrain_flow` or
-    a full training save of the port); without one `--allow_random_flow`
+    PWC weights come from `--flow_ckpt` (a scope save of `pretrain_flow`, a
+    full training save of the port or a TF1 bundle's prefix); without one `--allow_random_flow`
     must be set, as for training. Frame pairs come from the config's
     dataset through `TrainPipeline`, or from `batches`, an iterable of host
     batches in the pipeline's format. With config.checkpoint_dir set, scope
@@ -138,8 +137,6 @@ def pretrain_recover(config: Config, steps: int, verbose: bool = True, save_ever
             "pretrain_recover needs --flow_ckpt (a pretrain_flow scope save or a "
             "training save). Pass --allow_random_flow to pretrain against a "
             "randomly initialized flow net (tests/synthetic runs only).")
-    if config.flow_ckpt:
-        _refuse_tf1(config.flow_ckpt)
     trainer = RecoverPretrainer(config, device)
     if config.flow_ckpt:
         ckpt.restore_params_scope(config.flow_ckpt, trainer.pwc, "pwc_params")
