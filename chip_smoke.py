@@ -124,6 +124,38 @@ Phases, in order, each printed with its wall seconds:
              launches per step); then the chain pretrain_flow ->
              pretrain_recover -> the train CLI -> test_generator through
              each CLI's main(argv) on a cv2 JPEG tree;
+* mesh    -- the device mesh (parallel/mesh.py) at full width (reader
+             384x640, working 192x384, PWC 6 levels r=2, generator cnum 32,
+             recover f=0.25), seeded random weights, float32 with TF32 off
+             and cuDNN's deterministic algorithms (without them two float32
+             forwards on the card differ in the last bits), each rank
+             joining its group through `mesh_from_env` from torchrun's
+             variables. World 1 under
+             NCCL, the main path of the phase, its launches counted: 2
+             learner sub-steps at batch 16, `evaluate_dataset` on the eval
+             phase's 3 batches, one ensemble batch and one recover
+             pretraining step at batch 8, each bit-equal to the same calls
+             with no process group. Then 2 spawned ranks sharing the card
+             under gloo (NCCL refuses two ranks on one device), each held
+             to 45% of it so that neither takes the memory cuDNN's plan
+             choice depends on from the other, as (2,1) and
+             (1,2): the learner's two sub-steps against one process (the
+             losses and, where the gradient fixes them, the parameters
+             within rtol 2e-5 / atol 2e-6, tests/test_torch_mesh.py's
+             limits; below |g| = 100 eps/sqrt(1 - b2), where Adam's first
+             step turns last-bit gradient differences into larger ones, at
+             most 1e-4 of the elements beyond those limits, each by at most
+             lr; the gradients within the train phase's 1e-4 of the
+             net's largest), on (1,2) rank 0's bit-equal to the same calls
+             with no mesh in its own process, each rank's (1,2) forward mask
+             bit-equal to its own no-mesh forward, 5 cost-volume launches
+             per forward on each rank, parameters bit-equal across ranks;
+             per rank ms per generator and recover step (CUDA events),
+             ms in one flat gradient reduction and, on (1,2), in its
+             model-group broadcast alone (host clock), and peak memory.
+             Where there
+             are two cards, the same under NCCL on two cards; with one, a
+             line says they were not run;
 * repro   -- the port of tools/repro_mosaic_dynamic_dma.py (`dynamic_copy.
              repro`), the tile copy's own path: 2 launches, bit-equal;
 * profile -- device time by kernel over three of the path's forwards in
@@ -133,10 +165,12 @@ Phases, in order, each printed with its wall seconds:
 (default: this checkout): the cost volume's and the warp's at batch 8
 (r=4), summed over one forward, and both backward kernels at the pretrain
 phase's batch 16 (r=4), per level and summed over one pretraining step;
-its JSON line holds them all, and ptxas' registers and spills are printed
+its JSON line holds them all, with a digest of each forward kernel's
+outputs over the levels, and ptxas' registers and spills are printed
 when it builds. Given a `git archive` export of another
 commit as `--root`, it times that commit's kernels with this script's
-timer, so two commits compare in one call on one card.
+timer and inputs, so two commits compare, in time and in bits, in one
+call on one card.
 
 Any failed check raises, and the script exits non-zero; it also exits
 non-zero, printing no result, when no CUDA device is available. The line
@@ -148,6 +182,7 @@ JSON object with one entry per kernel; the last line is
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -183,7 +218,7 @@ from unsupervised_detection_tpu_torch.ops.warp import (  # noqa: E402
     dense_image_warp, warp_backward, warp_backward_plain, warp_plain)
 
 PHASES = ("card", "build", "kernels", "path", "eval", "postproc", "tf1", "train", "pretrain",
-          "repro", "profile")
+          "mesh", "repro", "profile")
 BATCH = 8
 # PWC pyramid level -> (H, W, C) at the 384x640 reader resolution
 LEVELS = {6: (6, 10, 196), 5: (12, 20, 128), 4: (24, 40, 96), 3: (48, 80, 64), 2: (96, 160, 32)}
@@ -569,7 +604,11 @@ def time_level(name, fn, args, bound, plain=None, library=None) -> dict:
 
 def time_kernels(with_plain: bool = True) -> dict:
     """The cost volume (r=4) and the warp at batch 8 at each level, and their
-    sums over one forward's launches, per dtype: {dtype: {kernel: sums}}."""
+    sums over one forward's launches, per dtype: {dtype: {kernel: sums}};
+    with each kernel's `digest`, a hash of its outputs at every level, so
+    that two trees timed on the same inputs compare bit for bit."""
+    import hashlib
+
     gen = torch.Generator(device="cuda").manual_seed(1)
     keys = ("ms", "device_ms", "plain_ms", "bound_ms", "library_ms")
     totals = {}
@@ -577,6 +616,7 @@ def time_kernels(with_plain: bool = True) -> dict:
         dn = dtype_name(dtype)
         t = {k: dict.fromkeys(keys, 0.0) for k in ("cost_volume", "warp")}
         by = {k: {"bytes": 0.0, "operations": 0.0} for k in t}
+        digests = {k: hashlib.sha256() for k in t}
         for lvl, (h, w, c) in LEVELS.items():
             shape = (BATCH, h, w, c)
             c1, wp = randn(gen, shape, dtype), randn(gen, shape, dtype)
@@ -594,6 +634,8 @@ def time_kernels(with_plain: bool = True) -> dict:
                     "warp", dense_image_warp, (c1, flow), warp_bound(*shape, dtype),
                     plain=warp_plain if with_plain else None, library=(F.grid_sample, gs))
                 rows["warp"]["library_max_abs_diff"] = lib_err
+                digests["warp"].update(dense_image_warp(c1, flow).float().cpu().numpy().tobytes())
+            digests["cost_volume"].update(cost_volume(c1, wp, 4).float().cpu().numpy().tobytes())
             for name, row in rows.items():
                 log("kernels: " + json.dumps({"time": f"{name} L{lvl} {dn} batch {BATCH}"
                                               + (" r=4" if name == "cost_volume" else ""),
@@ -602,6 +644,7 @@ def time_kernels(with_plain: bool = True) -> dict:
                     t[name][k] += row.get(k, 0.0)
                 by[name][row["bound_by"]] += row["bound_ms"]
         for name in t:
+            t[name]["digest"] = digests[name].hexdigest()[:16]
             t[name]["bound_by"] = max(by[name], key=by[name].get)
             t[name]["share_of_bound"] = t[name]["bound_ms"] / t[name]["device_ms"]
         t["cost_volume"]["library_ms"] = None
@@ -969,13 +1012,13 @@ def train_weights(seed: int = 0, head: float = 30.0) -> dict:
             "rec_params": random_recover_params(RecoverNet(), seed + 1)}
 
 
-def make_learner(cfg: Config, device: str, weights: dict):
-    """An AdversarialLearner on `device` and its initial state, the nets
-    loaded from `weights` through convert.py."""
+def make_learner(cfg: Config, device: str, weights: dict, mesh=None):
+    """An AdversarialLearner on `device` (and `mesh`, None: one process) and
+    its initial state, the nets loaded from `weights` through convert.py."""
     from unsupervised_detection_tpu_torch.convert import from_jax_params, recover_state_dict
     from unsupervised_detection_tpu_torch.train.learner import AdversarialLearner
 
-    learner = AdversarialLearner(cfg, device=device)
+    learner = AdversarialLearner(cfg, device=device, mesh=mesh)
     learner.objective.load_state_dicts(*from_jax_params(
         weights["gen_params"], weights["gen_stats"], weights["pwc_params"]))
     learner.objective.recover.load_state_dict(recover_state_dict(weights["rec_params"]))
@@ -2359,6 +2402,441 @@ def phase_profile(forwards: dict, images, iters: int = 3, top: int = 12) -> None
                 f"{count // iters:4d}/fwd {name[:90]}")
 
 
+# the mesh phase: the train phase's sizes (r=2), the learner at batch 16 and
+# recover pretraining at batch 8 (global batches); a mesh against one
+# process within tests/test_torch_mesh.py's limits (the JAX package's own
+# mesh equivalence, tests/test_train_step.py:140-146): the losses, and the
+# parameters after the step wherever the gradient fixes them; the applied
+# gradients within TRAIN_GRAD_REL of the net's largest, the train phase's
+# limit for two computations on the card. A rank's 8 rows and one
+# process's 16 run cuDNN convolutions chosen per batch size, and two
+# processes on one card differ in the last bits even at one batch size, so
+# a gradient differs in its last bits; TF1 Adam's first step moves an element by
+# lr * g / (|g| + e), e = eps / sqrt(1 - b2) = 3.16e-7, so an element whose
+# |g| is near e moves by a different share of lr on the two sides. Above
+# MESH_ADAM_FLOOR = 100 e a gradient error d moves an element by at most
+# lr * e * d / (|g| - d)^2 < 1e-6 * lr * d / e: far inside the limits.
+# Below it the elements beyond the limits may number at most
+# MESH_UNDER_FLOOR_SHARE of the elements, each off by at most lr: a first
+# step moves an element by less than lr, so a larger difference needs
+# steps of opposite sign.
+MESH_BATCH, MESH_PRETRAIN_BATCH = 16, 8
+MESH_RTOL, MESH_ATOL = 2e-5, 2e-6
+MESH_ADAM_FLOOR = 100 * 1e-8 / math.sqrt(1 - 0.999)
+MESH_UNDER_FLOOR_SHARE = 1e-4
+MESH_SHAPES = ((2, 1), (1, 2))
+# ranks sharing one card each take at most this share of it. cuDNN's
+# deterministic plan is the first whose workspace can be allocated, and a
+# rank's caching allocator keeps what it took, so without a share the
+# first rank to grow decides which plans the other gets, and their last
+# bits differ from run to run
+MESH_SHARED_CARD_SHARE = 0.45
+MESH_RANK_TIMEOUT = 300.0    # s; the 2 ranks take ~30 s on one H100
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+@contextlib.contextmanager
+def torchrun_env(rank: int, world: int, local_rank: int, port: int):
+    """torchrun's variables for one rank of a world on this host, as
+    `mesh_from_env` reads them; the previous values come back on exit."""
+    keys = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
+    saved = {k: os.environ.get(k) for k in keys}
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(local_rank),
+                      MASTER_ADDR="localhost", MASTER_PORT=str(port))
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def mesh_frames(batch: int, device) -> tuple:
+    """The first `recover_frames` pair, its first `batch` rows, on `device`."""
+    frames = next(recover_frames(1))
+    return tuple(torch.from_numpy(frames[k][:batch]).to(device) for k in ("img1", "img2"))
+
+
+def mesh_steps(mesh, weights: dict, device, timed: bool = False) -> dict:
+    """A generator and a recover step at MESH_BATCH from `weights`, on this
+    rank's rows of one global batch with the global batch's draws: the 8
+    losses, the applied gradients and both nets' parameters after (CPU
+    copies). With `timed`, one more step of each timed with CUDA events, and
+    one flat reduction of each net's gradients (and the 8 losses) timed
+    alone on the host clock (median of 5); on a model axis also the flat
+    broadcast over the model group that the reduction ends with."""
+    import statistics
+
+    import torch.distributed as dist
+
+    from unsupervised_detection_tpu_torch.ops.augment import sample_augment
+
+    cfg = Config(batch_size=MESH_BATCH, **TRAIN_SIZES)
+    learner, state = make_learner(cfg, device, weights, mesh)
+    img1, img2 = (mesh.shard(t) for t in mesh_frames(MESH_BATCH, device))
+    gen = torch.Generator().manual_seed(5)
+    out = {}
+    for name in ("generator_step", "recover_step"):
+        draws = sample_augment(gen, MESH_BATCH, cfg.reader_height, cfg.reader_width,
+                               cfg.train_crop)
+        state, losses, grads = getattr(learner, name)(state, img1, img2, draws=draws)
+        out[name] = {"losses": {k: float(v) for k, v in losses.items()},
+                     "grads": [g.detach().cpu().clone() for g in grads]}
+    out["params"] = net_params(state)
+    if not timed:
+        return out
+    ms = {}
+    for name in ("generator_step", "recover_step"):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, losses, grads = getattr(learner, name)(state, img1, img2)
+        end.record()
+        torch.cuda.synchronize()
+        ms[name] = start.elapsed_time(end)
+        flat = [g.clone() for g in grads] + [v.clone() for v in losses.values()]
+        whole = torch.cat([t.reshape(-1).to(torch.float32) for t in flat])
+        calls = {"_reduction": lambda: mesh.sum_data(flat)}
+        if mesh.n_model > 1:
+            calls["_broadcast"] = lambda: dist.broadcast(
+                whole, src=mesh.data_index * mesh.n_model, group=mesh.model_group)
+        for suffix, call in calls.items():
+            times = []
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                call()
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            ms[name.replace("_step", suffix)] = statistics.median(times)
+    out["ms"] = ms
+    return out
+
+
+def mesh_nets(cfg: Config, entry, device, weights: dict, mesh):
+    """`entry` (Evaluator or EnsembleEvaluator) on `device` and `mesh` with
+    the generator and PWC of `weights`."""
+    from unsupervised_detection_tpu_torch.convert import from_jax_params
+
+    ev = entry(cfg, device, mesh)
+    ev.load_state_dicts(*from_jax_params(weights["gen_params"], weights["gen_stats"],
+                                         weights["pwc_params"]))
+    return ev
+
+
+def mesh_mask(mesh, weights: dict, device) -> torch.Tensor:
+    """Evaluator.infer's masks of the global batch at MESH_BATCH (this
+    rank's rows), on the CPU."""
+    cfg = Config(batch_size=MESH_BATCH, **TRAIN_SIZES)
+    ev = mesh_nets(cfg, Evaluator, device, weights, mesh)
+    img1, img2 = (mesh.shard(t) for t in mesh_frames(MESH_BATCH, device))
+    gt = torch.zeros(img1.shape[:3] + (1,), device=device)
+    return ev.infer(img1, img2, gt)["gen_masks"].cpu()
+
+
+def mesh_main_calls(mesh, weights: dict) -> dict:
+    """The calls of the phase's main path on the card: the learner's two
+    sub-steps, `evaluate_dataset` on the eval phase's batches, one ensemble
+    batch and one recover pretraining step."""
+    from unsupervised_detection_tpu_torch.eval import EnsembleEvaluator, evaluate_dataset
+    from unsupervised_detection_tpu_torch.train.pretrain import RecoverPretrainer
+
+    cfg = Config(batch_size=BATCH, **TRAIN_SIZES)
+    out = {"steps": mesh_steps(mesh, weights, "cuda")}
+    ev = mesh_nets(cfg, Evaluator, "cuda", weights, mesh)
+    out["eval"] = evaluate_dataset(cfg, ev, verbose=False, batches=eval_batches())
+    ens = mesh_nets(cfg, EnsembleEvaluator, "cuda", weights, mesh)
+    out["ensemble"] = ens.run(next(iter(eval_batches())))
+    trainer = RecoverPretrainer(cfg.replace(batch_size=MESH_PRETRAIN_BATCH), "cuda", mesh)
+    loss = trainer.step(*(mesh.shard(t) for t in mesh_frames(MESH_PRETRAIN_BATCH, "cuda")))
+    out["pretrain"] = {"loss": float(loss), "params": {
+        k: v.detach().cpu().clone() for k, v in trainer.recover.named_parameters()}}
+    return out
+
+
+def bit_equal(got, want) -> bool:
+    """Nested dicts / lists of tensors, arrays and numbers, equal bit for bit
+    (NaN equal to NaN)."""
+    import numpy as np
+
+    if isinstance(want, dict):
+        return set(got) == set(want) and all(bit_equal(got[k], want[k]) for k in want)
+    if isinstance(want, (list, tuple)):
+        return len(got) == len(want) and all(bit_equal(g, w) for g, w in zip(got, want))
+    if isinstance(want, torch.Tensor):
+        return got.dtype == want.dtype and torch.equal(got, want)
+    if isinstance(want, np.ndarray):
+        return np.array_equal(got, want, equal_nan=True)
+    return got == want or (got != got and want != want)
+
+
+def mesh_rank(rank: int, world: int, backend: str, port: int, out_dir: str) -> None:
+    """One spawned rank: the learner's sub-steps on each of MESH_SHAPES and,
+    on a model axis, the Evaluator's masks, with their launch counts, and
+    then the same calls in this process with no mesh; written to
+    out_dir/rank<rank>.pt. The rank takes torchrun's variables and joins
+    the group through `mesh_from_env` with `backend` named: under gloo
+    every rank shares card 0 (LOCAL_RANK 0); under NCCL rank r takes card
+    r."""
+    import torch.distributed as dist
+
+    from unsupervised_detection_tpu_torch.parallel.mesh import Mesh, mesh_from_env
+
+    torch.backends.cudnn.deterministic = True
+    if backend == "gloo":
+        torch.cuda.set_per_process_memory_fraction(MESH_SHARED_CARD_SHARE, 0)
+    weights = train_weights()
+    out = {}
+    try:
+        for shape in MESH_SHAPES:
+            with torchrun_env(rank, world, rank if backend == "nccl" else 0, port):
+                mesh = mesh_from_env(*shape, batch_size=MESH_BATCH, backend=backend)
+            device = mesh.device
+            # on a model axis, the same steps with no mesh before and after
+            before = mesh_steps(Mesh(), weights, device) if mesh.n_model > 1 else None
+            torch.cuda.reset_peak_memory_stats(device)
+            reset_counts()
+            run = {"steps": mesh_steps(mesh, weights, device, timed=True),
+                   "launches_steps": launch_counts(),
+                   "memory": card_memory(device)}
+            if mesh.n_model > 1:
+                reset_counts()
+                run["mask"] = mesh_mask(mesh, weights, device)
+                run["launches_mask"] = launch_counts()
+                run["one_process"] = {"before": before,
+                                      "steps": mesh_steps(Mesh(), weights, device),
+                                      "mask": mesh_mask(Mesh(), weights, device)}
+            out[shape] = run
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+
+
+def card_memory(device) -> dict:
+    """This process's peak reserved memory since the last reset and the
+    card's free memory now, GiB."""
+    return {"peak_reserved_gib": torch.cuda.max_memory_reserved(device) / 2**30,
+            "card_free_gib": torch.cuda.mem_get_info(device)[0] / 2**30}
+
+
+def max_excess(got: torch.Tensor, want: torch.Tensor, rtol: float, atol: float) -> float:
+    """The largest |got - want| - (atol + rtol |want|): <= 0 within the limits."""
+    return float(((got - want).abs() - (atol + rtol * want.abs())).max())
+
+
+def steps_excess(steps: dict, want: dict) -> dict:
+    """`mesh_steps` records against `want`'s: the largest excess over
+    MESH_RTOL / MESH_ATOL (<= 0 within) of the 8 losses and of the
+    parameters where the gradient fixes them (|g| >= MESH_ADAM_FLOOR), under
+    that floor the elements beyond the limits counted with the largest
+    difference among them (`hold_steps` limits both); the applied
+    gradients' largest difference over the stepped net's largest
+    |gradient|."""
+    row = {"losses": -1.0, "grads": -1.0, "params": -1.0, "under_floor_beyond": 0,
+           "under_floor_max_diff": 0.0, "under_floor": 0, "elements": 0}
+    for name in ("generator_step", "recover_step"):
+        for k, v in want[name]["losses"].items():
+            row["losses"] = max(row["losses"], abs(steps[name]["losses"][k] - v)
+                                - (MESH_ATOL + MESH_RTOL * abs(v)))
+        scale = max(float(w.abs().max()) for w in want[name]["grads"])
+        for g, w in zip(steps[name]["grads"], want[name]["grads"]):
+            row["grads"] = max(row["grads"], float((g - w).abs().max()) / scale)
+    for net, name in (("gen", "generator_step"), ("rec", "recover_step")):
+        for (k, v), g in zip(want["params"][net].items(), want[name]["grads"]):
+            got = steps["params"][net][k]
+            fixed = g.abs() >= MESH_ADAM_FLOOR
+            excess = (got - v).abs() - (MESH_ATOL + MESH_RTOL * v.abs())
+            if bool(fixed.any()):
+                row["params"] = max(row["params"], float(excess[fixed].max()))
+            beyond = ~fixed & (excess > 0)
+            row["under_floor_beyond"] += int(beyond.sum())
+            row["under_floor"] += int((~fixed).sum())
+            row["elements"] += v.numel()
+            if bool(beyond.any()):
+                row["under_floor_max_diff"] = max(row["under_floor_max_diff"],
+                                                  float((got - v).abs()[beyond].max()))
+    return row
+
+
+def hold_steps(what: str, steps: dict, want: dict) -> dict:
+    row = steps_excess(steps, want)
+    lr = Config().learning_rate
+    most = int(MESH_UNDER_FLOOR_SHARE * row["elements"])
+    log(f"mesh: {what}: largest excess over rtol {MESH_RTOL} / atol {MESH_ATOL} (<= 0 "
+        f"within): losses {row['losses']:.3e}, parameters where |g| >= "
+        f"{MESH_ADAM_FLOOR:.3e} {row['params']:.3e}; under that floor "
+        f"{row['under_floor_beyond']} of {row['under_floor']} elements beyond the limits (of "
+        f"{row['elements']}; limit {most}), by at most {row['under_floor_max_diff']:.3e} "
+        f"(limit lr {lr}); gradients {row['grads']:.3e} of the net's largest (limit "
+        f"{TRAIN_GRAD_REL})")
+    if (row["losses"] > 0 or row["grads"] > TRAIN_GRAD_REL or row["params"] > 0
+            or row["under_floor_beyond"] > most or row["under_floor_max_diff"] > lr):
+        raise AssertionError(f"mesh: {what}: beyond the limits: {row}")
+    return row
+
+
+def hold_mesh_ranks(label: str, ranks: list, ref: dict, ref_mask: torch.Tensor) -> dict:
+    """The spawned ranks' results: on each shape rank 0's steps against one
+    process (this one) within the limits of `steps_excess`; parameters
+    bit-equal across ranks; 5 cost-volume and 4 warp launches per forward
+    on each rank. On a model axis: rank 0's steps bit-equal to the same
+    calls with no mesh in its process, before and after them (the other
+    ranks apply rank 0's sums: their own no-mesh steps, from another
+    process, are compared and logged), and every rank's masks bit-equal to
+    its own no-mesh forward (within MASK_TOL of this process's). Logs each
+    rank's times."""
+    want_steps = {"cost_volume": 20, "warp": 16, "dynamic_copy": 0,
+                  "cost_volume_backward": 0, "warp_backward": 0}
+    summary = {}
+    for shape in MESH_SHAPES:
+        runs = [r[shape] for r in ranks]
+        row = summary[f"{shape[0]}x{shape[1]}"] = {
+            "ms": [r["steps"]["ms"] for r in runs],
+            "against_one_process": hold_steps(f"{label} {shape} against one process",
+                                              runs[0]["steps"], ref["steps"])}
+        for rank, run in enumerate(runs):
+            steps = run["steps"]
+            if rank > 0 and not bit_equal(steps["params"], runs[0]["steps"]["params"]):
+                raise AssertionError(f"mesh: {label} {shape}: parameters differ on rank {rank}")
+            if run["launches_steps"] != want_steps:
+                raise AssertionError(f"mesh: {label} {shape} rank {rank}: launches in 4 "
+                                     f"sub-steps {run['launches_steps']}, expected {want_steps}")
+            broadcast = ("" if shape[1] == 1 else
+                         f", its model-group broadcast alone "
+                         f"{steps['ms']['generator_broadcast']:.3f} / "
+                         f"{steps['ms']['recover_broadcast']:.3f} ms")
+            log(f"mesh: {label} {shape} rank {rank}: ms per generator / recover step "
+                f"{steps['ms']['generator_step']:.3f} / {steps['ms']['recover_step']:.3f} (CUDA "
+                f"events), one flat reduction {steps['ms']['generator_reduction']:.3f} / "
+                f"{steps['ms']['recover_reduction']:.3f} ms{broadcast} (host clock, median of "
+                f"5), fp32 r=2 global batch {MESH_BATCH}; launches "
+                f"{json.dumps(run['launches_steps'])} in 4 sub-steps; memory "
+                f"{json.dumps(run['memory'])} [{card_line()}]")
+            if shape[1] == 1:
+                continue
+            one = run["one_process"]
+            same_mask = bit_equal(run["mask"], one["mask"])
+            mask_err = float((run["mask"] - ref_mask).abs().max())
+            def same(x, y):
+                return all(bit_equal(x[k], y[k])
+                           for k in ("generator_step", "recover_step", "params"))
+
+            bits = {"no mesh before = after": same(one["before"], one["steps"]),
+                    "mesh = no mesh before": same(steps, one["before"]),
+                    "mesh = no mesh after": same(steps, one["steps"])}
+            log(f"mesh: {label} {shape} rank {rank}: mask bit-equal to no mesh in its process "
+                f"{same_mask}, to rank 0's {bit_equal(run['mask'], runs[0]['mask'])}, against "
+                f"this process's {mask_err:.3e} (limit {MASK_TOL}); "
+                f"launches {json.dumps(run['launches_mask'])} in one forward; the two "
+                f"sub-steps, in that process, bit-equal: {json.dumps(bits)}")
+            row.setdefault("steps_bit_equal", []).append(bits)
+            if rank > 0:
+                # the rank applies rank 0's sums; its own steps come from another process
+                row.setdefault("other_process", []).append(steps_excess(one["steps"], steps))
+                log(f"mesh: {label} {shape} rank {rank}: its own no-mesh steps against rank "
+                    f"0's: {json.dumps(row['other_process'][-1])}")
+            elif not all(bits.values()):
+                raise AssertionError(f"mesh: {label} {shape} rank 0: {bits}")
+            if (not same_mask or mask_err > MASK_TOL
+                    or (run["launches_mask"]["cost_volume"], run["launches_mask"]["warp"]) != (5, 4)):
+                raise AssertionError(f"mesh: {label} {shape} rank {rank}: mask bit-equal "
+                                     f"{same_mask}, {mask_err}, {run['launches_mask']}")
+        log(f"mesh: {label} {shape}: parameters bit-equal across ranks")
+    return summary
+
+
+def mesh_spawn(label: str, backend: str, ref: dict, ref_mask: torch.Tensor) -> dict:
+    import gc
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    # the ranks share the card with this process: hand back its cached blocks
+    # (cuBLAS's workspaces, held in the caching allocator, pin whole segments)
+    gc.collect()
+    torch._C._cuda_clearCublasWorkspaces()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    need = 2 * MESH_SHARED_CARD_SHARE * total if backend == "gloo" else 0.0
+    log(f"mesh: {label}: this process holds {torch.cuda.memory_reserved() / 2**30:.2f} GiB, "
+        f"the card has {free / 2**30:.2f} GiB free (the ranks' shares {need / 2**30:.2f})")
+    if free < need:
+        raise RuntimeError(f"mesh: {label}: the ranks' shares of the card need "
+                           f"{need / 2**30:.2f} GiB, {free / 2**30:.2f} GiB are free")
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        context = mp.spawn(mesh_rank, args=(2, backend, free_port(), tmp), nprocs=2,
+                           join=False)
+        while not context.join(timeout=max(0.0, MESH_RANK_TIMEOUT - (time.perf_counter() - t0))):
+            if time.perf_counter() - t0 >= MESH_RANK_TIMEOUT:
+                for proc in context.processes:
+                    proc.terminate()
+                raise TimeoutError(f"mesh: {label}: ranks still running after "
+                                   f"{MESH_RANK_TIMEOUT} s")
+        log(f"mesh: {label}: 2 ranks spawned and run in {time.perf_counter() - t0:.1f} s")
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+                 for r in range(2)]
+    return hold_mesh_ranks(label, ranks, ref, ref_mask)
+
+
+def phase_mesh(report: dict) -> None:
+    """The mesh at world 1 under NCCL (the phase's main path, bit-equal to
+    no process group), 2 ranks on the card under gloo, and 2 cards under
+    NCCL where there are two."""
+    import torch.distributed as dist
+
+    from unsupervised_detection_tpu_torch.parallel.mesh import Mesh, mesh_from_env
+
+    weights = train_weights()
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    out = {}
+    try:
+        ref = mesh_main_calls(Mesh(), weights)
+        torch.cuda.empty_cache()
+        ref_mask = mesh_mask(Mesh(), weights, "cuda")
+        try:
+            with torchrun_env(0, 1, 0, free_port()):
+                mesh = mesh_from_env(batch_size=MESH_BATCH)
+            reset_counts()
+            t0 = time.perf_counter()
+            got = mesh_main_calls(mesh, weights)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            report["launches_mesh"] = launch_counts()
+        finally:
+            if dist.is_initialized():
+                dist.destroy_process_group()
+        same = {k: bit_equal(got[k], ref[k]) for k in ref}
+        want = {"cost_volume": 35, "warp": 28, "dynamic_copy": 0, "cost_volume_backward": 0,
+                "warp_backward": 0}
+        log(f"mesh: world 1 under NCCL ({seconds:.2f} s): bit-equal to no process group "
+            f"{json.dumps(same)}; launches {json.dumps(report['launches_mesh'])} in 2 sub-steps, "
+            f"3 evaluation batches, 1 ensemble batch and 1 pretraining step; evaluation IoU "
+            f"{got['eval']['dataset_iou']}, MAE {got['eval']['dataset_mae']}")
+        if not all(same.values()) or report["launches_mesh"] != want:
+            raise AssertionError(f"mesh: world 1: {same}, launches {report['launches_mesh']} "
+                                 f"(expected {want})")
+        out["gloo_one_card"] = mesh_spawn("gloo, 2 ranks on one card", "gloo", ref, ref_mask)
+        if torch.cuda.device_count() >= 2:
+            out["nccl_two_cards"] = mesh_spawn("NCCL, 2 cards", "nccl", ref, ref_mask)
+        else:
+            log(f"mesh: NCCL across cards not run: torch.cuda.device_count() is "
+                f"{torch.cuda.device_count()}")
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    report["mesh"] = out
+
+
 def phase_repro(report: dict) -> None:
     """The tile copy's own path: the port of the Mosaic repro's main."""
     from unsupervised_detection_tpu_torch.ops.dynamic_copy import dynamic_copy, repro
@@ -2392,7 +2870,7 @@ def main_times() -> int:
     backward = time_backward_kernels(with_plain=False)
 
     def sums(t):
-        return {k: {"device_ms": v["device_ms"], "ms": v["ms"]}
+        return {k: {key: v[key] for key in ("device_ms", "ms", "digest") if key in v}
                 for k, v in t.items() if k != "levels"}
 
     print(json.dumps({"times": {dn: sums(t) for dn, t in totals.items()},
@@ -2431,6 +2909,8 @@ def main() -> int:
             phase_train(report)
         elif phase == "pretrain":
             phase_pretrain(report)
+        elif phase == "mesh":
+            phase_mesh(report)
         elif phase == "repro":
             phase_repro(report)
         else:
@@ -2452,6 +2932,7 @@ def main() -> int:
             "launches_tf1": report["launches_tf1"].get(name, 0),
             "launches_train": 0 if backward else report["launches_train"][name],
             "launches_pretrain": report["launches_pretrain"][name],
+            "launches_mesh": report["launches_mesh"][name],
             "max_abs_err": k["max_abs_err"],
             "ms": k["ms"], "device_ms": k["device_ms"], "plain_ms": k["plain_ms"],
             "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],

@@ -31,7 +31,7 @@ from unsupervised_detection_tpu_torch.train.pretrain_pwc import pretrain_pwc
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "unsupervised_detection_tpu_torch")
 BLOCKED = ("jax", "jaxlib", "flax", "orbax", "unsupervised_detection_tpu", "tensorflow")
-TPU_ONLY = ("use_pallas", "warp_method", "mesh_data", "mesh_model")
+TPU_ONLY = ("use_pallas", "warp_method")
 
 
 def _port_sources():

@@ -18,7 +18,8 @@ import torch
 
 from torch_parity import clamp_flow
 from unsupervised_detection_tpu_torch.ops.cost_volume import (
-    cost_volume, cost_volume_backward, cost_volume_backward_plain, cost_volume_plain)
+    cost_volume, cost_volume_backward, cost_volume_backward_plain, cost_volume_forward,
+    cost_volume_plain, dy_rows)
 from unsupervised_detection_tpu_torch.ops.dynamic_copy import dynamic_copy, dynamic_copy_plain
 from unsupervised_detection_tpu_torch.ops.warp import (
     dense_image_warp, warp_backward, warp_backward_plain, warp_plain)
@@ -98,6 +99,40 @@ def _check_warp(device, shape):
 @pytest.mark.parametrize("shape", SHAPES)
 def test_cost_volume_kernel_matches_plain(cuda_device, shape):
     _check_cost_volume(cuda_device, shape)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SHAPES + ((16, 96, 160, 32), (16, 6, 10, 196)))
+def test_cost_volume_dy_ranges_are_the_whole_volumes_rows(cuda_device, shape):
+    """A launch over the dy rows [d0, d1) of each part of 2, 3, 4, 2r+1 and
+    2r+2 (an empty one) writes exactly the whole volume's channels of those
+    rows, bit for bit, and zero elsewhere; the parts sum to the whole
+    volume; one launch per nonempty part. The plain version over the same
+    range is the plain whole volume's rows."""
+    rs = np.random.RandomState(1)
+    a, b = (torch.from_numpy(rs.randn(*shape).astype(np.float32)).to(cuda_device)
+            for _ in range(2))
+    for dtype in (torch.float32, torch.bfloat16):
+        for r in (2, 4):
+            x, y = a.to(dtype), b.to(dtype)
+            d = 2 * r + 1
+            whole, plain = cost_volume_forward(x, y, r), cost_volume_plain(x, y, r)
+            for parts in (2, 3, 4, d, d + 1):
+                total = torch.zeros_like(whole, dtype=torch.float32)
+                for i in range(parts):
+                    d0, d1 = dy_rows(r, parts, i)
+                    before = cost_volume.launches
+                    got = cost_volume_forward(x, y, r, dy_range=(d0, d1))
+                    torch.cuda.synchronize()
+                    assert cost_volume.launches == before + (d1 > d0)
+                    rows = slice(d0 * d, d1 * d)
+                    assert torch.equal(got[..., rows], whole[..., rows]), (dtype, r, parts, i)
+                    assert torch.equal(cost_volume_plain(x, y, r, (d0, d1))[..., rows],
+                                       plain[..., rows])
+                    got[..., rows] = 0
+                    assert not got.any()
+                    total += cost_volume_forward(x, y, r, dy_range=(d0, d1)).float()
+                assert torch.equal(total.to(dtype), whole)
 
 
 @pytest.mark.cuda

@@ -2,9 +2,10 @@
 
 `Config` holds only the fields the port reads, each with the JAX package's
 flag name and default (unsupervised_detection_tpu/config.py:18-95). The
-TPU-only knobs (`use_pallas`, `warp_method`, `mesh_data`, `mesh_model`) are
-absent: the port always runs its CUDA kernels on a CUDA device and has no
-mesh (one card), and `parse_flags` refuses them. `parse_flags` accepts
+TPU-only knobs (`use_pallas`, `warp_method`) are absent: the port always
+runs its CUDA kernels on a CUDA device, and `parse_flags` refuses them.
+`mesh_data` and `mesh_model` shape the mesh of a run under torchrun
+(parallel/mesh.py). `parse_flags` accepts
 gflags-style arguments (--name=value, --name value, --bool/--nobool), as
 the JAX parser does.
 """
@@ -79,6 +80,9 @@ class Config:
     # augmentation and gradient-noise draws; evaluation reads no seed
     seed: int = 8964
     debug_nans: bool = False             # raise on a non-finite loss
+    # the (data, model) mesh over torchrun's processes (parallel/mesh.py)
+    mesh_data: int = 0                   # 0 = every rank on the data axis
+    mesh_model: int = 1
 
     def replace(self, **kw) -> "Config":
         return dataclasses.replace(self, **kw)
@@ -89,8 +93,6 @@ _FIELDS = {f.name: f for f in dataclasses.fields(Config)}
 _TPU_ONLY = {
     "use_pallas": "the port always runs its CUDA kernels on a CUDA device",
     "warp_method": "the port has one warp, its CUDA kernel",
-    "mesh_data": "the port runs on one card and has no mesh",
-    "mesh_model": "the port runs on one card and has no mesh",
 }
 
 

@@ -11,6 +11,12 @@
 // with warp zero outside the image. NHWC in, (B,H,W,(2r+1)^2) out, in the
 // input dtype (float32 or bfloat16), float32 accumulation.
 //
+// A launch may cover a range [d0, d1) of the 2r+1 displacement rows dy: it
+// writes the channels dy*(2r+1)+dx of those rows and leaves the others as
+// they are. The ranks of a model group split the rows this way and sum
+// their zero-filled volumes (parallel/mesh.py); the full range [0, 2r+1)
+// is the whole volume.
+//
 // Bound on the H100: memory. Reading c1 and warp once and writing the
 // volume once moves (2*B*H*W*C + B*H*W*(2r+1)^2) * itemsize bytes for
 // 2*B*H*W*C*(2r+1)^2 operations. At PWC's shapes that is at most 16.8
@@ -27,8 +33,10 @@
 // * A block covers TY output rows x TX = P*NXG pixels and DYB of the 2r+1
 //   dy rows, so one staged halo of TY+DYB-1 warp rows serves TY output rows.
 //   The launcher balances TY and NXG to the level and, where the grid would
-//   not reach one block per SM (levels 6 to 4), splits dy across blocks and
-//   then the channel quads across neighbouring lanes (summed by shuffles).
+//   not reach one block per SM (levels 6 to 4), splits the launch's dy rows
+//   across blocks and then the channel quads across neighbouring lanes
+//   (summed by shuffles). A narrower dy range narrows the grid; the inner
+//   loop is the same.
 // * The block walks C in chunks of SB bytes per pixel (a power of two from
 //   64 to 1024: the largest that keeps a block's shared memory near 100 KB,
 //   so two blocks share an SM and the small levels with long C run few
@@ -43,13 +51,15 @@
 // * Shared rows are padded by 16 bytes so that threads of one warp reading
 //   neighbouring dy rows hit different banks.
 // * Epilogue, 1/C and LeakyReLU(0.1) fused, channels-last: where a block
-//   holds every dy, its outputs go through shared memory and each output
+//   holds all 2r+1 dy rows, its outputs go through shared memory and each output
 //   row's contiguous run is written by consecutive threads at consecutive
 //   addresses (16-byte stores would need 16-byte-aligned rows, which
-//   W*(2r+1)^2 elements do not give). Where dy is split (small levels),
-//   each thread writes its runs of 2r+1 values straight from registers.
+//   W*(2r+1)^2 elements do not give). Where dy is split (small levels, or
+//   a range short of 2r+1), each thread writes its runs of 2r+1 values
+//   straight from registers.
 #include <algorithm>
 #include <cstdint>
+#include <utility>
 
 #include "common.cuh"
 
@@ -71,6 +81,7 @@ struct Tile {
   int nxg;       // groups of P pixels per block row
   int dyb;       // dy rows per block
   int nd;        // dy groups (blocks along dy)
+  int d0, d1;    // the launch's dy rows [d0, d1)
   int qs;        // lanes sharing one (pixel group, dy) over channel quads
   int sb_log2;   // log2 of the bytes of each pixel staged per chunk
   int vb_log2;   // log2 of the staging copy size in bytes (1..4)
@@ -113,7 +124,7 @@ cost_volume_kernel(const T* __restrict__ c1, const T* __restrict__ warp, T* __re
 
   const int x0 = blockIdx.x * tx;
   const int y0 = (blockIdx.y / t.nd) * t.ty;
-  const int dy0 = (blockIdx.y % t.nd) * t.dyb;
+  const int dy0 = t.d0 + (blockIdx.y % t.nd) * t.dyb;
   const long long b = blockIdx.z;
 
   // thread -> (quad phase, dy, output row, pixel group); quads innermost so
@@ -124,7 +135,7 @@ cost_volume_kernel(const T* __restrict__ c1, const T* __restrict__ warp, T* __re
   rest /= t.dyb;
   const int ty = rest % t.ty;
   const int xg = rest / t.ty;
-  const bool active = dy0 + dyl < D;
+  const bool active = dy0 + dyl < t.d1;
 
   float acc[P][D];
 #pragma unroll
@@ -180,7 +191,7 @@ cost_volume_kernel(const T* __restrict__ c1, const T* __restrict__ warp, T* __re
 #pragma unroll
         for (int dx = 0; dx < D; ++dx) acc[p][dx] += __shfl_xor_sync(mask, acc[p][dx], off);
   }
-  if (t.nd == 1) {
+  if (t.nd == 1 && t.dyb == D) {
     // the block holds every dy, so each of its output rows is one contiguous
     // run of (valid pixels) * K values: stage them in shared memory and
     // write them with consecutive threads at consecutive addresses
@@ -204,8 +215,8 @@ cost_volume_kernel(const T* __restrict__ c1, const T* __restrict__ warp, T* __re
     }
     return;
   }
-  // dy split across blocks (small levels): each thread writes its runs of
-  // 2r+1 values straight from registers
+  // dy split across blocks (small levels) or a partial dy range: each
+  // thread writes its runs of 2r+1 values straight from registers
   const int y = y0 + ty;
   if (!active || qi != 0 || y >= t.H) return;
   T* dst = out + ((b * t.H + y) * t.W + x0 + xg * P) * K + (dy0 + dyl) * D;
@@ -240,10 +251,13 @@ int sm_count() {
   return n;
 }
 
-// Tile shape for one level: balanced row and pixel-group tiles; dy split,
-// while the grid is under one block per SM; the chunk size; then the quad
-// split while a block has fewer than four warps.
-Plan make_plan(int B, int H, int W, int C, int R, int itemsize, int vb_log2) {
+// Tile shape for one level: balanced row and pixel-group tiles; the dy rows
+// split, while the grid is under one block per SM; the chunk size; then the
+// quad split while a block has fewer than four warps. The quad split fixes
+// the order of each output's sums, so a range [d0, d1) short of the 2r+1
+// rows keeps the whole volume's split (and its bits) and only narrows the
+// grid; its blocks hold no more dy rows than the whole volume's.
+Plan make_plan(int B, int H, int W, int C, int R, int d0, int d1, int itemsize, int vb_log2) {
   const int D = 2 * R + 1;
   Plan pl;
   pl.p = W >= 64 ? 8 : 4;
@@ -256,32 +270,47 @@ Plan make_plan(int B, int H, int W, int C, int R, int itemsize, int vb_log2) {
   const int ty = ceil_div(H, yt);
   yt = ceil_div(H, ty);
   const long long base = static_cast<long long>(B) * xt * yt;
-  int dyb = D;
-  while (dyb > 1 && base * ceil_div(D, dyb) < sm_count()) --dyb;
-  const int nd = ceil_div(D, dyb);
-  dyb = ceil_div(D, nd);   // balance the dy groups
+  // (dy rows per block, dy groups) for `rows` rows, at most `most` per block
+  auto split = [&](int rows, int most) {
+    int dyb = std::min(rows, most);
+    while (dyb > 1 && base * ceil_div(rows, dyb) < sm_count()) --dyb;
+    const int nd = ceil_div(rows, dyb);
+    return std::make_pair(ceil_div(rows, nd), nd);   // balance the dy groups
+  };
 
   const int tx = pl.p * nxg;
   const int pix_bytes = C * itemsize;
-  auto smem_for = [&](int sb) {
+  auto smem_for = [&](int sb, int dyb) {
     const size_t stage = static_cast<size_t>(ty + dyb - 1) * ((tx + 2 * R) * sb + kRowPad) +
                          static_cast<size_t>(ty) * (tx * sb + kRowPad);
     return (pix_bytes > sb ? 2 : 1) * stage;
   };
-  int sb_log2 = 6;
-  while (sb_log2 < 10 && (1 << sb_log2) < pix_bytes && smem_for(2 << sb_log2) <= kSmemTarget)
-    ++sb_log2;
+  auto chunk_log2 = [&](int dyb) {
+    int sb_log2 = 6;
+    while (sb_log2 < 10 && (1 << sb_log2) < pix_bytes &&
+           smem_for(2 << sb_log2, dyb) <= kSmemTarget)
+      ++sb_log2;
+    return sb_log2;
+  };
 
-  const int quads = (1 << sb_log2) / (4 * itemsize);
-  const int threads = dyb * ty * nxg;
+  // the whole volume's plan fixes the quad split
+  const auto all = split(D, D);
+  const int dyb_all = all.first;
+  const int quads = (1 << chunk_log2(dyb_all)) / (4 * itemsize);
+  const int threads_all = dyb_all * ty * nxg;
   int qs = 1;
-  while (qs < quads && qs < 32 && threads * qs < 128 && threads * qs * 2 <= kMaxThreads) qs *= 2;
-  pl.t = Tile{H, W, C, ty, nxg, dyb, nd, qs, sb_log2, vb_log2,
+  while (qs < quads && qs < 32 && threads_all * qs < 128 && threads_all * qs * 2 <= kMaxThreads)
+    qs *= 2;
+
+  const auto [dyb, nd] = d1 - d0 == D ? all : split(d1 - d0, dyb_all);
+  const int sb_log2 = chunk_log2(dyb);
+  pl.t = Tile{H, W, C, ty, nxg, dyb, nd, d0, d1, qs, sb_log2, vb_log2,
               static_cast<float>(1.0 / static_cast<double>(C))};
   pl.grid = dim3(xt, yt * nd, B);
-  pl.threads = qs * threads;
-  const size_t epilogue = nd == 1 ? static_cast<size_t>(ty) * tx * D * D * sizeof(float) : 0;
-  pl.smem = std::max(smem_for(1 << sb_log2), epilogue);
+  pl.threads = qs * dyb * ty * nxg;
+  const size_t epilogue =
+      nd == 1 && dyb == D ? static_cast<size_t>(ty) * tx * D * D * sizeof(float) : 0;
+  pl.smem = std::max(smem_for(1 << sb_log2, dyb), epilogue);
   return pl;
 }
 
@@ -312,28 +341,33 @@ cudaError_t launch_p(const Plan& pl, const void* c1, const void* warp, void* out
 
 template <typename T, int R>
 cudaError_t launch(const void* c1, const void* warp, void* out, int B, int H, int W, int C,
-                   cudaStream_t stream) {
+                   int d0, int d1, cudaStream_t stream) {
   // widest copy that the pixel stride and both pointers are aligned to
   const int vb_log2 = udt::copy_log2(c1, warp, static_cast<long long>(C) * sizeof(T));
   if (vb_log2 < 0) return cudaErrorMisalignedAddress;
-  const Plan pl = make_plan(B, H, W, C, R, sizeof(T), vb_log2);
+  const Plan pl = make_plan(B, H, W, C, R, d0, d1, sizeof(T), vb_log2);
   if (pl.p == 8) return launch_p<T, R, 8>(pl, c1, warp, out, stream);
   return launch_p<T, R, 4>(pl, c1, warp, out, stream);
 }
 
 }  // namespace
 
-// c1, warp: (B,H,W,C) contiguous, dtype code `dtype`; out: (B,H,W,(2r+1)^2).
-// Returns the cudaError_t of the launch (0 on success).
+// c1, warp: (B,H,W,C) contiguous, dtype code `dtype`; out: (B,H,W,(2r+1)^2),
+// of which the launch writes the channels of the dy rows [d0, d1),
+// 0 <= d0 < d1 <= 2r+1. Returns the cudaError_t of the launch (0 on success).
 extern "C" int udt_cost_volume(const void* c1, const void* warp, void* out, int B,
-                               int H, int W, int C, int r, int dtype, void* stream) {
+                               int H, int W, int C, int r, int d0, int d1, int dtype,
+                               void* stream) {
   if (B <= 0 || H <= 0 || W <= 0 || C <= 0 || B > 65535) return cudaErrorInvalidValue;
+  if (d0 < 0 || d1 <= d0 || d1 > 2 * r + 1) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == udt::kFloat32 && r == 4) return launch<float, 4>(c1, warp, out, B, H, W, C, s);
-  if (dtype == udt::kFloat32 && r == 2) return launch<float, 2>(c1, warp, out, B, H, W, C, s);
+  if (dtype == udt::kFloat32 && r == 4)
+    return launch<float, 4>(c1, warp, out, B, H, W, C, d0, d1, s);
+  if (dtype == udt::kFloat32 && r == 2)
+    return launch<float, 2>(c1, warp, out, B, H, W, C, d0, d1, s);
   if (dtype == udt::kBFloat16 && r == 4)
-    return launch<__nv_bfloat16, 4>(c1, warp, out, B, H, W, C, s);
+    return launch<__nv_bfloat16, 4>(c1, warp, out, B, H, W, C, d0, d1, s);
   if (dtype == udt::kBFloat16 && r == 2)
-    return launch<__nv_bfloat16, 2>(c1, warp, out, B, H, W, C, s);
+    return launch<__nv_bfloat16, 2>(c1, warp, out, B, H, W, C, d0, d1, s);
   return cudaErrorInvalidValue;
 }

@@ -12,6 +12,11 @@ Two feed modes:
     the host to the reader size with the TF-parity weights of the port's
     ops/resize.py, the same matrices the device uses.
 
+Under a data-parallel mesh every rank runs the same seeded pipeline, so
+the global batches and their order are those of one process; with `rows`
+(lo, hi) a pipeline decodes only those rows of each batch and says so in
+the batch's `rows` entry (`category` and `fname` stay the global batch's).
+
 cv2 is imported where frames are decoded, so the package imports on a host
 without it. The pipelines take `read_rgb` (and `read_gray`) decode hooks,
 so a caller that holds frames in memory can feed them without files.
@@ -111,7 +116,8 @@ class TrainPipeline:
     the remainder dropped, and per sample a shift t ~ U{min_temporal_len..
     max_temporal_len} along the row's direction. Yields dict batches
     (`img1_raw`/`img2_raw` uint8 in raw mode, `img1`/`img2` float32 at the
-    reader size in host mode); augmentation happens on the device.
+    reader size in host mode); augmentation happens on the device. With
+    `rows`, only those rows of each batch are decoded.
     """
 
     def __init__(self, dataset: SequenceDataset, batch_size: int,
@@ -119,7 +125,8 @@ class TrainPipeline:
                  reader_hw: Tuple[int, int] = (384, 640),
                  raw_hw: Optional[Tuple[int, int]] = None,
                  num_threads: int = 6, seed: int = 8964,
-                 read_rgb: Callable[[str], np.ndarray] = _imread_rgb):
+                 read_rgb: Callable[[str], np.ndarray] = _imread_rgb,
+                 rows: Optional[Tuple[int, int]] = None):
         self.index = train_pair_index(dataset, max_temporal_len)
         self.batch_size = batch_size
         self.min_t = min_temporal_len
@@ -128,6 +135,7 @@ class TrainPipeline:
         self.raw_hw = raw_hw
         self.read_rgb = read_rgb
         self.rng = np.random.RandomState(seed)
+        self.rows = rows
         self.loader = HostLoader(num_threads, prefetch=3)
 
     def _spec_stream(self):
@@ -143,16 +151,20 @@ class TrainPipeline:
 
     def _make_batch(self, spec):
         idx1, idx2 = spec
+        extra = {}
+        if self.rows is not None:
+            idx1, idx2 = idx1[self.rows[0]:self.rows[1]], idx2[self.rows[0]:self.rows[1]]
+            extra = {"rows": self.rows}
         rgb = self.read_rgb
         if self.raw_hw is not None:
             img1 = np.stack([rgb(self.index.images[i]) for i in idx1])
             img2 = np.stack([rgb(self.index.images[i]) for i in idx2])
-            return {"img1_raw": img1, "img2_raw": img2}
+            return {"img1_raw": img1, "img2_raw": img2, **extra}
         img1 = np.stack([host_resize_image(rgb(self.index.images[i]), self.reader_hw)
                          for i in idx1])
         img2 = np.stack([host_resize_image(rgb(self.index.images[i]), self.reader_hw)
                          for i in idx2])
-        return {"img1": img1, "img2": img2}
+        return {"img1": img1, "img2": img2, **extra}
 
     def __iter__(self):
         return self.loader.prefetched(self._spec_stream(), self._make_batch)
@@ -171,7 +183,7 @@ class TestPipeline:
 
     `read_rgb` / `read_gray` decode a frame / mask name to uint8 HWC / HW1
     (default: cv2 from files); a caller that holds frames in memory passes
-    its own lookups.
+    its own lookups. With `rows`, only those rows of each batch are decoded.
     """
 
     def __init__(self, dataset: Optional[SequenceDataset], batch_size: int, t_len: int,
@@ -180,7 +192,8 @@ class TestPipeline:
                  num_threads: int = 1,
                  explicit_tuples: Optional[List] = None,
                  read_rgb: Callable[[str], np.ndarray] = _imread_rgb,
-                 read_gray: Callable[[str], np.ndarray] = _imread_gray):
+                 read_gray: Callable[[str], np.ndarray] = _imread_gray,
+                 rows: Optional[Tuple[int, int]] = None):
         if explicit_tuples is not None:
             # FBMS-style (img1, img2, ann, category, samples_per_cat) tuples.
             self.tuples = explicit_tuples
@@ -194,6 +207,7 @@ class TestPipeline:
         self.reader_hw = reader_hw
         self.raw_hw = raw_hw
         self.read_rgb, self.read_gray = read_rgb, read_gray
+        self.rows = rows
         self.loader = HostLoader(num_threads, prefetch=3)
 
     @property
@@ -215,22 +229,21 @@ class TestPipeline:
 
     def _make_batch(self, rows):
         f1s, f2s, anns, cats = zip(*[self._sample(i) for i in rows])
+        meta = {"category": list(cats), "fname": list(f1s)}
+        if self.rows is not None:
+            lo, hi = self.rows
+            f1s, f2s, anns = f1s[lo:hi], f2s[lo:hi], anns[lo:hi]
+            meta["rows"] = self.rows
         rgb, gray = self.read_rgb, self.read_gray
         if self.raw_hw is not None:
             img1 = np.stack([rgb(f) for f in f1s])
             img2 = np.stack([rgb(f) for f in f2s])
             gt = np.stack([gray(a) for a in anns])
-            return {
-                "img1_raw": img1, "img2_raw": img2, "gt_raw": gt,
-                "category": list(cats), "fname": list(f1s),
-            }
+            return {"img1_raw": img1, "img2_raw": img2, "gt_raw": gt, **meta}
         img1 = np.stack([host_resize_image(rgb(f), self.reader_hw) for f in f1s])
         img2 = np.stack([host_resize_image(rgb(f), self.reader_hw) for f in f2s])
         gt = np.stack([host_resize_mask(gray(a), self.reader_hw) for a in anns])
-        return {
-            "img1": img1, "img2": img2, "gt": gt,
-            "category": list(cats), "fname": list(f1s),
-        }
+        return {"img1": img1, "img2": img2, "gt": gt, **meta}
 
     def _spec_stream(self):
         order = np.arange(self.num_samples)

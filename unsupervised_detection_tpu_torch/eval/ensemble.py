@@ -5,8 +5,11 @@ The reference builds four per-crop subgraphs at batch size 1
 (build_aug_test_graph, adversarial_learner.py:525-592). As in the JAX
 package the crop axis is a batch axis: the four central crop+resize
 variants of a batch are concatenated into one 4B batch for a single PWC +
-generator forward, and the outputs are split back per crop. One card, no
-mesh.
+generator forward, and the outputs are split back per crop. On a mesh
+(parallel/mesh.py) each rank runs the 4 crops of its rows of the batch and
+`run` gathers the outputs over the data group in global order: the
+4 crops x B forward splits over the data axis as JAX shards it
+(ensemble.py:67-74 there).
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ from ..config import Config
 from ..data.device_input import DeviceFeeder
 from ..device import precision_scope
 from ..ops.resize import central_crop_resize, resize_nearest
+from ..parallel.mesh import Mesh
 from ..train.objective import AdversarialObjective
 from .evaluator import compute_iou_np, compute_mae_np
 
@@ -27,7 +31,8 @@ TEST_CROPS = [0.85, 0.9, 0.95, 1.0]  # adversarial_learner.py:531
 
 
 class EnsembleEvaluator:
-    """The 4-crop ensemble forward for one config on one device.
+    """The 4-crop ensemble forward for one config on one device, on this
+    rank's `mesh` (None: the trivial one).
 
     `device=None` means the first CUDA device and raises without one; float32
     runs with TF32 off (`device.precision_scope`). It ignores
@@ -35,11 +40,13 @@ class EnsembleEvaluator:
     test_crop=1.0 inputs and applies the crop grid
     (adversarial_learner.py:536-550)."""
 
-    def __init__(self, config: Config, device=None):
+    def __init__(self, config: Config, device=None, mesh: Mesh | None = None):
         self.config = config
-        self.objective = AdversarialObjective(config, device)
+        self.mesh = mesh if mesh is not None else Mesh()
+        self.objective = AdversarialObjective(config, device, self.mesh)
         self.device = self.objective.device
-        self.feeder = DeviceFeeder((config.reader_height, config.reader_width), self.device)
+        self.feeder = DeviceFeeder((config.reader_height, config.reader_width), self.device,
+                                   self.mesh)
 
     def load_state_dicts(self, gen_state: dict, pwc_state: dict) -> None:
         self.objective.load_state_dicts(gen_state, pwc_state)
@@ -70,9 +77,10 @@ class EnsembleEvaluator:
 
     def run(self, batch) -> Dict[str, np.ndarray]:
         """`infer` on one batch of uncropped test samples (a `TestPipeline`
-        dict), as float32 numpy arrays."""
+        dict), as float32 numpy arrays: on a mesh, this rank's rows inferred
+        and the global batch's gathered."""
         out = self.infer(*self.feeder.images(batch), self.feeder.mask(batch))
-        return {k: v.cpu().numpy() for k, v in out.items()}
+        return {k: self.mesh.gather_data(v, dim=1).cpu().numpy() for k, v in out.items()}
 
 
 def crop_metrics(out: Dict[str, np.ndarray], b: int):

@@ -4,7 +4,13 @@ and the working-resolution inputs),
 `Evaluator.infer_metrics` (IoU/MAE reduced on the device),
 `Evaluator.device_batch`, the reference's host metrics, and
 `evaluate_dataset` with its metrics-only path and its dense path (overlay
-PNGs and `result_<n>.mat` files). One card, no mesh."""
+PNGs and `result_<n>.mat` files).
+
+On a mesh (parallel/mesh.py) each rank infers its rows of every batch and
+`evaluate_dataset` gathers the per-frame results over the data group in
+global order, so its bookkeeping, wrapped duplicates included, is one
+process's on every rank; global rank 0 alone prints and writes the
+files."""
 
 from __future__ import annotations
 
@@ -22,6 +28,7 @@ from ..data.device_input import DeviceFeeder
 from ..device import precision_scope
 from ..ops.metrics import eval_iou_mae
 from ..ops.resize import central_crop_resize, resize_nearest
+from ..parallel.mesh import Mesh
 from ..train.objective import AdversarialObjective
 from ..utils.visualization import postprocess_image, postprocess_mask
 
@@ -64,25 +71,29 @@ def compute_mae_np(gt_mask: np.ndarray, pred_mask: np.ndarray) -> float:
 
 
 class Evaluator:
-    """Mask inference + IoU/MAE for one config on one device.
+    """Mask inference + IoU/MAE for one config on one device, on this
+    rank's `mesh` (None: the trivial one).
 
     `device=None` means the first CUDA device and raises without one. In
     float32 every call runs with TF32 off for cuDNN and matmul
     (`device.precision_scope`, entered per call and restored after).
+    `infer` and `infer_metrics` compute the rows they are given.
     """
 
-    def __init__(self, config: Config, device=None):
+    def __init__(self, config: Config, device=None, mesh: Mesh | None = None):
         self.config = config
-        self.objective = AdversarialObjective(config, device)
+        self.mesh = mesh if mesh is not None else Mesh()
+        self.objective = AdversarialObjective(config, device, self.mesh)
         self.device = self.objective.device
-        self.feeder = DeviceFeeder((config.reader_height, config.reader_width), self.device)
+        self.feeder = DeviceFeeder((config.reader_height, config.reader_width), self.device,
+                                   self.mesh)
 
     def load_state_dicts(self, gen_state: dict, pwc_state: dict) -> None:
         self.objective.load_state_dicts(gen_state, pwc_state)
 
     def device_batch(self, batch):
         """Raw/host batch (a `TestPipeline` dict) -> reader-resolution
-        (img1, img2, gt) on the device."""
+        (img1, img2, gt) on the device: this rank's rows."""
         img1, img2 = self.feeder.images(batch)
         return img1, img2, self.feeder.mask(batch)
 
@@ -131,10 +142,12 @@ class Evaluator:
         return {"iou": iou_b, "mae": mae_b}
 
 
-def build_test_pipeline(config: Config) -> TestPipeline:
+def build_test_pipeline(config: Config, mesh: Mesh | None = None) -> TestPipeline:
     """The dataset's evaluation stream, as the JAX evaluate_dataset builds
     it: FBMS from its annotated test tuples (host mode), DAVIS2016 from the
-    test partition (raw mode), SegTrack from all sequences (host mode)."""
+    test partition (raw mode), SegTrack from all sequences (host mode). On a
+    data axis wider than one it decodes only `mesh`'s rows of each batch."""
+    rows = (mesh or Mesh()).batch_rows(config.batch_size)
     reader = get_reader(config.dataset, config.root_dir,
                         max_temporal_len=config.max_temporal_len,
                         min_temporal_len=config.min_temporal_len,
@@ -144,12 +157,13 @@ def build_test_pipeline(config: Config) -> TestPipeline:
         tuples = reader.test_tuples(config.test_partition, config.test_temporal_shift)
         return TestPipeline(None, config.batch_size, config.test_temporal_shift,
                             reader_hw=reader_hw, raw_hw=None,
-                            num_threads=config.num_threads, explicit_tuples=tuples)
+                            num_threads=config.num_threads, explicit_tuples=tuples, rows=rows)
     partition = config.test_partition if config.dataset == "DAVIS2016" else "all"
     ds = reader.dataset(partition)
     raw_hw = (reader.raw_height, reader.raw_width) if reader.raw_height is not None else None
     return TestPipeline(ds, config.batch_size, config.test_temporal_shift,
-                        reader_hw=reader_hw, raw_hw=raw_hw, num_threads=config.num_threads)
+                        reader_hw=reader_hw, raw_hw=raw_hw, num_threads=config.num_threads,
+                        rows=rows)
 
 
 def evaluate_dataset(config: Config, evaluator: Evaluator, save_dir: Optional[str] = None,
@@ -160,8 +174,10 @@ def evaluate_dataset(config: Config, evaluator: Evaluator, save_dir: Optional[st
 
     The stream is built from `config` (`build_test_pipeline`) unless `batches`
     gives one: an iterable of `TestPipeline` batch dicts, for callers that
-    feed frames without decoding files. Wrapped duplicates of the last batch
-    count, in the frame count and in their category, as in the JAX loop.
+    feed frames without decoding files (global batches). Wrapped duplicates
+    of the last batch count, in the frame count and in their category, as
+    in the JAX loop. On a mesh the results are the global batch's on every
+    rank, and only global rank 0 prints and writes.
 
     With `generate_visualization` and `save_dir` the dense path runs
     (`Evaluator.infer`): the metrics are the
@@ -170,9 +186,11 @@ def evaluate_dataset(config: Config, evaluator: Evaluator, save_dir: Optional[st
     `result_<n>.mat` (flow, img1, pred_mask, gt_mask), n counting the
     category's frames from 1, wrapped duplicates included.
     """
+    mesh = evaluator.mesh
     dense = bool(generate_visualization and save_dir)
+    verbose = verbose and mesh.is_main
     if batches is None:
-        batches = build_test_pipeline(config)
+        batches = build_test_pipeline(config, mesh)
 
     category_iou: Dict[str, list] = {}
     category_mae: Dict[str, list] = {}
@@ -180,8 +198,8 @@ def evaluate_dataset(config: Config, evaluator: Evaluator, save_dir: Optional[st
     for batch in batches:
         if not dense:
             out = evaluator.infer_metrics(*evaluator.device_batch(batch))
-            ious = out["iou"].cpu().numpy()
-            maes = out["mae"].cpu().numpy()
+            ious = mesh.gather_data(out["iou"]).cpu().numpy()
+            maes = mesh.gather_data(out["mae"]).cpu().numpy()
             for b in range(ious.shape[0]):
                 category = batch["category"][b]
                 category_iou.setdefault(category, []).append(float(ious[b]))
@@ -189,7 +207,7 @@ def evaluate_dataset(config: Config, evaluator: Evaluator, save_dir: Optional[st
                 i += 1
             continue
         out = evaluator.infer(*evaluator.device_batch(batch))
-        out = {k: v.cpu().numpy() for k, v in out.items()}
+        out = {k: mesh.gather_data(v).cpu().numpy() for k, v in out.items()}
         for b in range(out["input_image"].shape[0]):
             gt_mask = out["gt_masks"][b]
             category = batch["category"][b]
@@ -197,8 +215,9 @@ def evaluate_dataset(config: Config, evaluator: Evaluator, save_dir: Optional[st
             category_iou.setdefault(category, []).append(iou)
             category_mae.setdefault(category, []).append(
                 compute_mae_np(gt_mask=gt_mask, pred_mask=out_mask))
-            _save_frame(os.path.join(save_dir, category), len(category_iou[category]),
-                        out, b, out_mask)
+            if mesh.is_main:
+                _save_frame(os.path.join(save_dir, category), len(category_iou[category]),
+                            out, b, out_mask)
             i += 1
 
     tot_ious = tot_maes = 0.0

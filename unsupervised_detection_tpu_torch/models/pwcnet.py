@@ -11,7 +11,10 @@ model_pwcnet.py:8-19, 581-649).
 Per forward the cost volume runs once per level (5 launches, L6..L2) and
 the warp once per level below the top (4 launches, L5..L2); both go
 through the CUDA kernels on a CUDA device, and a backward pass through PWC
-(pretraining) launches their backward kernels as often. Images and flows are NHWC at
+(pretraining) launches their backward kernels as often. On a mesh with a
+model axis (parallel/mesh.py) each rank of a model group computes its share
+of the cost volume's displacement rows and the group sums the volumes, in
+the place of JAX's `costvol_offset_sharding` (pwcnet.py:109-146 there). Images and flows are NHWC at
 the interface; inside, activations are NCHW views of channels-last memory,
 so `permute(0, 2, 3, 1)` hands the kernels NHWC-contiguous tensors.
 """
@@ -21,7 +24,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ..ops.cost_volume import cost_volume
+from ..ops.cost_volume import cost_volume, cost_volume_forward, dy_rows
 from ..ops.resize import resize_bilinear
 from ..ops.warp import dense_image_warp
 from .layers import ConvTranspose2D, PWCConv
@@ -104,13 +107,16 @@ class PWCNet(nn.Module):
     """Coarse-to-fine flow network. Inputs are NHWC float32 images in
     [-0.5, 0.5] (shifted to [0, 1] inside, adapt_x); H and W divisible by
     2**pyr_lvls. Computes in `dtype`; returns float32 NHWC flow, channel 0
-    is y."""
+    is y. With a `mesh` whose model axis is wider than one, the cost volume
+    is split over the model group (frozen PWC only: it carries no
+    gradient)."""
 
     def __init__(self, pyr_lvls: int = 6, flow_pred_lvl: int = 2,
-                 search_range: int = 4, dtype: torch.dtype = torch.float32):
+                 search_range: int = 4, dtype: torch.dtype = torch.float32, mesh=None):
         super().__init__()
         self.pyr_lvls, self.flow_pred_lvl = pyr_lvls, flow_pred_lvl
         self.search_range, self.dtype = search_range, dtype
+        self.mesh = mesh
         self.featpyr = FeaturePyramid(pyr_lvls)
         n_off = (2 * search_range + 1) ** 2
         for lvl in range(pyr_lvls, flow_pred_lvl - 1, -1):
@@ -121,6 +127,16 @@ class PWCNet(nn.Module):
             if lvl != flow_pred_lvl:
                 self.add_module(f"up_flow{lvl}", ConvTranspose2D(2, 2, 4, 2))
                 self.add_module(f"up_feat{lvl}", ConvTranspose2D(est.out_ch, 2, 4, 2))
+
+    def _cost_volume(self, c1: torch.Tensor, warp: torch.Tensor) -> torch.Tensor:
+        mesh, r = self.mesh, self.search_range
+        if mesh is None or mesh.n_model == 1:
+            return cost_volume(c1, warp, r)
+        if torch.is_grad_enabled() and (c1.requires_grad or warp.requires_grad):
+            raise RuntimeError("the cost volume split over a model axis has no gradient: "
+                               "PWC is frozen wherever a mesh is used")
+        rows = dy_rows(r, mesh.n_model, mesh.model_index)
+        return mesh.sum_model(cost_volume_forward(c1, warp, r, dy_range=rows))
 
     def forward(self, img1: torch.Tensor, img2: torch.Tensor,
                 upsample_output: bool = True, return_pyramid: bool = False):
@@ -137,11 +153,11 @@ class PWCNet(nn.Module):
         flow_pyr = []
         for lvl in range(self.pyr_lvls, self.flow_pred_lvl - 1, -1):
             if lvl == self.pyr_lvls:
-                x = _nchw(cost_volume(_nhwc(c1[lvl]), _nhwc(c2[lvl]), self.search_range))
+                x = _nchw(self._cost_volume(_nhwc(c1[lvl]), _nhwc(c2[lvl])))
             else:
                 # upsampled flow in this level's pixel units (model_pwcnet.py:616)
                 warped = dense_image_warp(_nhwc(c2[lvl]), _nhwc(up_flow * (20.0 / 2**lvl)))
-                corr = _nchw(cost_volume(_nhwc(c1[lvl]), warped, self.search_range))
+                corr = _nchw(self._cost_volume(_nhwc(c1[lvl]), warped))
                 x = torch.cat([corr, c1[lvl], up_flow, up_feat], dim=1)
             feat, flow = getattr(self, f"estimator{lvl}")(x)
             flow = getattr(self, f"ctxt{lvl}")(feat, flow)

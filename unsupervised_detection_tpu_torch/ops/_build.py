@@ -82,7 +82,7 @@ def _digest() -> str:
 
 
 def _declare(lib: ctypes.CDLL) -> None:
-    lib.udt_cost_volume.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
+    lib.udt_cost_volume.argtypes = [_P, _P, _P] + [_I] * 8 + [_P]
     lib.udt_cost_volume.restype = _I
     lib.udt_warp.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I, _P]
     lib.udt_warp.restype = _I

@@ -8,6 +8,12 @@ ops/pallas/cost_volume_kernel.py. For each displacement (dy, dx) of the
 c1 * warp shifted by (dy-r, dx-r) with zero padding, then LeakyReLU(0.1)
 (reference core_costvol.py:20-40). NHWC in, (B, H, W, (2r+1)^2) out.
 
+`dy_range` restricts a call to the displacement rows [d0, d1): the volume
+keeps the channels dy*(2r+1)+dx of those rows and is zero elsewhere. The
+ranks of a model group each take the rows `dy_rows` gives them and sum
+their volumes (models/pwcnet.py, parallel/mesh.py), in the place of JAX's
+`offset_sharding` (ops/cost_volume.py:24-54 there).
+
 The gradient is the VJP of `_cost_volume_xla`, which XLA derives in the JAX
 package; the port computes it in `cost_volume_backward` (the kernel of
 csrc/cost_volume_backward.cu on the card, `cost_volume_backward_plain` on
@@ -31,16 +37,36 @@ def _acc_dtype(t: torch.Tensor) -> torch.dtype:
     return torch.float64 if t.dtype == torch.float64 else torch.float32
 
 
-def cost_volume_plain(c1: torch.Tensor, warp: torch.Tensor, search_range: int = 4) -> torch.Tensor:
+def dy_rows(search_range: int, parts: int, index: int) -> tuple[int, int]:
+    """The displacement rows [d0, d1) of part `index` of `parts`: the 2r+1
+    rows split evenly, the first parts taking one more; a part past 2r+1
+    holds an empty range."""
+    base, extra = divmod(2 * search_range + 1, parts)
+    d0 = index * base + min(index, extra)
+    return d0, d0 + base + (index < extra)
+
+
+def _check_range(search_range: int, dy_range) -> tuple[int, int]:
+    d0, d1 = dy_range if dy_range is not None else (0, 2 * search_range + 1)
+    if not 0 <= d0 <= d1 <= 2 * search_range + 1:
+        raise ValueError(f"cost_volume: dy range [{d0}, {d1}) is not within "
+                         f"[0, {2 * search_range + 1})")
+    return d0, d1
+
+
+def cost_volume_plain(c1: torch.Tensor, warp: torch.Tensor, search_range: int = 4,
+                      dy_range: tuple[int, int] | None = None) -> torch.Tensor:
     """Plain PyTorch cost volume: float32 products and sums, output in the
-    input dtype."""
+    input dtype; with `dy_range`, zero outside those displacement rows."""
     r = search_range
+    d0, d1 = _check_range(r, dy_range)
     b, h, w, c = c1.shape
     acc = _acc_dtype(c1)
     a = c1.to(acc)
     padded = F.pad(warp.to(acc), (0, 0, r, r, r, r))
-    costs = [(a * padded[:, dy:dy + h, dx:dx + w]).sum(dim=3) * (1.0 / c)
-             for dy in range(2 * r + 1) for dx in range(2 * r + 1)]
+    zero = a.new_zeros((b, h, w))
+    costs = [(a * padded[:, dy:dy + h, dx:dx + w]).sum(dim=3) * (1.0 / c) if d0 <= dy < d1
+             else zero for dy in range(2 * r + 1) for dx in range(2 * r + 1)]
     return F.leaky_relu(torch.stack(costs, dim=3), 0.1).to(c1.dtype)
 
 
@@ -101,24 +127,29 @@ def _check_shapes(name: str, c1: torch.Tensor, warp: torch.Tensor) -> None:
                          "must be equal (B, H, W, C)")
 
 
-def cost_volume_forward(c1: torch.Tensor, warp: torch.Tensor, search_range: int = 4) -> torch.Tensor:
+def cost_volume_forward(c1: torch.Tensor, warp: torch.Tensor, search_range: int = 4,
+                        dy_range: tuple[int, int] | None = None) -> torch.Tensor:
     """The cost volume without autograd: `cost_volume_plain` on CPU tensors;
     on CUDA tensors the kernel of csrc/cost_volume.cu (float32 or bfloat16,
     contiguous NHWC, r in {2, 4}), counted in `cost_volume.launches`;
-    anything the kernel does not take raises."""
+    anything the kernel does not take raises. With a `dy_range` short of
+    all 2r+1 rows the volume is zero-filled and the kernel writes those
+    rows' channels; an empty range launches nothing."""
     _check_shapes("cost_volume", c1, warp)
+    d0, d1 = _check_range(search_range, dy_range)
     if _on_cpu(c1, warp):
-        return cost_volume_plain(c1, warp, search_range)
+        return cost_volume_plain(c1, warp, search_range, dy_range)
     _check_cuda("cost_volume", {"c1": c1, "warp": warp}, search_range)
     b, h, w, c = c1.shape
     k = (2 * search_range + 1) ** 2
-    out = torch.empty((b, h, w, k), dtype=c1.dtype, device=c1.device)
-    if out.numel() == 0:
+    full = (d0, d1) == (0, 2 * search_range + 1)
+    out = (torch.empty if full else torch.zeros)((b, h, w, k), dtype=c1.dtype, device=c1.device)
+    if out.numel() == 0 or d0 == d1:
         return out
     lib = library()
     lib.check(lib.lib.udt_cost_volume(
         c1.data_ptr(), warp.data_ptr(), out.data_ptr(), b, h, w, c,
-        search_range, DTYPE_CODES[c1.dtype], stream_of(c1)), "cost_volume")
+        search_range, d0, d1, DTYPE_CODES[c1.dtype], stream_of(c1)), "cost_volume")
     cost_volume.launches += 1
     return out
 

@@ -8,7 +8,9 @@ Supervised training on synthetic warped scenes, no data needed
 (train/pretrain_pwc.py). `--checkpoint_dir` receives the scope saves
 `pwc-<step>` and `pwc-final`, which the train CLI and `pretrain_recover`
 read with `--flow_ckpt`. Extra flags: --pretrain_steps (default 20000),
---lr_schedule (constant|cosine, default constant). Runs on the card.
+--lr_schedule (constant|cosine, default constant). Runs on the card, in
+one process: the JAX package's PWC pretraining takes no mesh, and under
+torchrun with more than one process this CLI refuses to start.
 """
 
 from __future__ import annotations

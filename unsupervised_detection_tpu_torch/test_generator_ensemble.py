@@ -14,7 +14,9 @@ it writes DIR/<category>/result_<n>.mat with the keys img_1_XXX,
 pred_mask_XXX and gt_mask_XXX per crop (XXX = 085, 090, 095, 100): the
 buffers that `python -m unsupervised_detection_tpu_torch.post_processing`
 reads. `--ckpt_file` is an evaluation checkpoint, a training save of the port
-or a TF1 bundle's prefix. Runs on the card.
+or a TF1 bundle's prefix. Runs on the card; under torchrun each process
+runs the crops of its rows of every batch on its own card (`--mesh_data`,
+`--mesh_model`; parallel/mesh.py), and global rank 0 prints and writes.
 """
 
 from __future__ import annotations
@@ -29,21 +31,33 @@ from .config import parse_flags
 from .eval import TEST_CROPS, EnsembleEvaluator
 from .eval.ensemble import crop_metrics
 from .eval.evaluator import build_test_pipeline
+from .parallel.mesh import mesh_session
 from .train.checkpoint import load_eval_checkpoint
 
 
 def main(argv, device=None) -> dict:
     """Run the CLI on `argv` (the flags, without the program name) on
-    `device`: None is the card, and raises without one. Returns
-    {"dataset_iou", "dataset_mae", "category_iou", "category_mae", "frames"}."""
+    `device`: None is the card (cuda:LOCAL_RANK under torchrun), and raises
+    without one. Returns {"dataset_iou", "dataset_mae", "category_iou",
+    "category_mae", "frames"} (None on a rank outside the mesh)."""
     config = parse_flags(argv)
-    evaluator = EnsembleEvaluator(config, device)
-    evaluator.load_state_dicts(*load_eval_checkpoint(config.ckpt_file, config.pwc_search_range))
-    print("Resume model from checkpoint {}".format(config.ckpt_file))
-    save = config.generate_visualization and config.test_save_dir
+    with mesh_session(config, device) as mesh:
+        if not mesh.member:
+            return None
+        evaluator = EnsembleEvaluator(config, mesh.device, mesh)
+        evaluator.load_state_dicts(*load_eval_checkpoint(config.ckpt_file,
+                                                         config.pwc_search_range))
+        return _evaluate(config, evaluator)
+
+
+def _evaluate(config, evaluator: EnsembleEvaluator) -> dict:
+    mesh = evaluator.mesh
+    log = print if mesh.is_main else (lambda *args: None)
+    log("Resume model from checkpoint {}".format(config.ckpt_file))
+    save = config.generate_visualization and config.test_save_dir and mesh.is_main
     category_iou, category_mae = {}, {}
     i = 0
-    for batch in build_test_pipeline(config):
+    for batch in build_test_pipeline(config, mesh):
         out = evaluator.run(batch)
         for b in range(out["pred_masks"].shape[1]):
             category = batch["category"][b]
@@ -69,13 +83,13 @@ def main(argv, device=None) -> dict:
 
     tot_ious = tot_maes = 0.0
     for cat, list_iou in category_iou.items():
-        print("Category {}: IoU is {} and MAE is {}".format(
+        log("Category {}: IoU is {} and MAE is {}".format(
             cat, np.mean(list_iou), np.mean(category_mae[cat])))
         tot_ious += np.sum(list_iou)
         tot_maes += np.sum(category_mae[cat])
-    print("The Average over the dataset: IoU is {} and MAE is {}".format(
+    log("The Average over the dataset: IoU is {} and MAE is {}".format(
         tot_ious / float(i), tot_maes / float(i)))
-    print("Success: Processed {} frames".format(i))
+    log("Success: Processed {} frames".format(i))
     return {"dataset_iou": tot_ious / float(i), "dataset_mae": tot_maes / float(i),
             "category_iou": {k: float(np.mean(v)) for k, v in category_iou.items()},
             "category_mae": {k: float(np.mean(v)) for k, v in category_mae.items()},

@@ -1,7 +1,8 @@
 """Adversarial learner: train state, the two players' steps, validation.
 
 Counterpart of unsupervised_detection_tpu/train/learner.py (reference
-models/adversarial_learner.py:206-448) on one device, without a mesh:
+models/adversarial_learner.py:206-448), on one device or on one rank of a
+data- and model-parallel mesh (parallel/mesh.py):
 
   * `TrainState` holds the step, the torch.Generator of the augmentation
     and gradient-noise draws, the three nets (the objective's modules,
@@ -15,6 +16,14 @@ models/adversarial_learner.py:206-448) on one device, without a mesh:
     noise (loss_utils.py:7-32); `select_step` is the reference's 1:3
     alternation;
   * `summary_images` gives the driver's TensorBoard images.
+
+On a mesh each step takes this rank's rows of the global batch. The
+augmentation and the noise are drawn from `state.rng` for the global
+batch on every rank, and the rank takes its rows, so every generator
+advances alike. Each rank's loss is its share of the global loss
+(train/objective.py); one flat all_reduce over the data group sums the
+gradients and the logged losses before the clip, the noise test and Adam,
+so the parameters stay equal on every rank.
 """
 
 from __future__ import annotations
@@ -31,6 +40,7 @@ from ..ops.augment import augment_pair, sample_augment
 from ..ops.flow import flow_to_image_summary
 from ..ops.metrics import disambiguate_forward_background
 from ..ops.resize import central_crop_resize, resize_bilinear
+from ..parallel.mesh import Mesh
 from .objective import AdversarialObjective
 from .optim import AdamState, adam_apply, adam_init
 
@@ -75,22 +85,25 @@ def _clip_or_noise(rng: torch.Generator, grads, clip_value: float,
 
 class AdversarialLearner:
     """The objective's three nets on one device, the two players' steps and
-    validation. `device=None` means the first CUDA device and raises
-    without one. The nets' initial weights come from `config.seed`."""
+    validation, on this rank's `mesh` (None: the trivial one). `device=None`
+    means the first CUDA device and raises without one. The nets' initial
+    weights come from `config.seed`, the same on every rank."""
 
-    def __init__(self, config: Config, device=None):
+    def __init__(self, config: Config, device=None, mesh: Mesh | None = None):
         self.config = config
+        self.mesh = mesh if mesh is not None else Mesh()
         # the nets are initialized on the CPU, from the CPU generator
         with torch.random.fork_rng(devices=[]):
             torch.default_generator.manual_seed(config.seed)
-            self.objective = AdversarialObjective(config, device)
+            self.objective = AdversarialObjective(config, device, self.mesh)
         self.device = self.objective.device
         self.dtype = self.objective.dtype
         for net in (self.objective.generator, self.objective.recover, self.objective.pwc):
             net.requires_grad_(False)
         # (lr, b1, b2, eps) of train/optim.adam_apply (adversarial_learner.py:216-233)
         self.adam_hparams = (config.learning_rate, config.beta1, 0.999, config.adam_epsilon)
-        self.feeder = DeviceFeeder((config.reader_height, config.reader_width), self.device)
+        self.feeder = DeviceFeeder((config.reader_height, config.reader_width), self.device,
+                                   self.mesh)
 
     def init_state(self) -> TrainState:
         obj = self.objective
@@ -102,33 +115,38 @@ class AdversarialLearner:
 
     def _step(self, state: TrainState, img1, img2, draws, net, loss_key: str,
               opt_name: str, can_change: bool):
-        cfg = self.config
+        cfg, mesh = self.config, self.mesh
         if draws is None:
             b, h, w, _ = img1.shape
-            draws = sample_augment(state.rng, b, h, w, cfg.train_crop)
+            draws = sample_augment(state.rng, b * mesh.n_data, h, w, cfg.train_crop)
         params = dict(net.named_parameters())
         with precision_scope(self.dtype):
-            img1, img2 = augment_pair(draws, img1, img2)
+            img1, img2 = augment_pair(mesh.shard(draws), img1, img2)
             net.requires_grad_(True)
             try:
                 out = self.objective.forward(img1, img2)
                 grads = torch.autograd.grad(out.losses[loss_key], list(params.values()))
             finally:
                 net.requires_grad_(False)
+        # the global gradients and losses: one all_reduce over the data group
+        keys = list(out.losses)
+        summed = mesh.sum_data(list(grads) + [out.losses[k] for k in keys])
+        grads, out_losses = summed[:len(grads)], dict(zip(keys, summed[len(grads):]))
         grads = _clip_or_noise(state.rng, grads, cfg.gradient_clip,
                                cfg.grad_noise_threshold, can_change)
         opt = getattr(state, opt_name)
         t = state.shared_adam_t if cfg.adam_shared_step else opt.count + 1
         new_opt = adam_apply(dict(zip(params, grads)), opt, params, t, *self.adam_hparams)
         setattr(state, opt_name, new_opt)
-        losses = {k: v.detach() for k, v in out.losses.items()}
+        losses = {k: v.detach() for k, v in out_losses.items()}
         return state, losses, grads
 
     def generator_step(self, state: TrainState, img1: torch.Tensor, img2: torch.Tensor,
                        draws: dict | None = None):
-        """One generator update from a reader-resolution batch; returns
-        (state, losses before the update, the applied gradients). `draws`
-        are the augmentation draws (`ops.augment.sample_augment`); None
+        """One generator update from a reader-resolution batch (this rank's
+        rows of it); returns (state, losses before the update, the applied
+        gradients), those of the global batch. `draws` are the global
+        batch's augmentation draws (`ops.augment.sample_augment`); None
         draws them from `state.rng`."""
         return self._step(state, img1, img2, draws, state.generator, "generator",
                           "gen_opt", True)
@@ -148,14 +166,16 @@ class AdversarialLearner:
     def val_step(self, state: TrainState, img1: torch.Tensor, img2: torch.Tensor,
                  gt_masks: torch.Tensor) -> torch.Tensor:
         """Sum of the per-sample validation IoU of one batch, after the
-        test-time central crop."""
+        test-time central crop; on a mesh, of the global batch (summed over
+        the data group)."""
         cfg = self.config
         with precision_scope(self.dtype):
             if cfg.test_crop != 1.0:
                 img1 = central_crop_resize(img1, cfg.test_crop)
                 img2 = central_crop_resize(img2, cfg.test_crop)
                 gt_masks = central_crop_resize(gt_masks, cfg.test_crop)
-            return self.objective.validation_iou(img1, img2, gt_masks).sum()
+            return self.mesh.sum_data([self.objective.validation_iou(img1, img2, gt_masks)
+                                       .sum()])[0]
 
     @torch.no_grad()
     def summary_images(self, state: TrainState, img1: torch.Tensor,
@@ -164,7 +184,8 @@ class AdversarialLearner:
         collect_summaries, adversarial_learner.py:260-281), (1, h, w, 3)
         float32 in [-0.5, 0.5] on the device: the inputs, the PWC flow
         colorized and masked by the foreground, and the recover net's flow
-        and its complement colorized."""
+        and its complement colorized. On a mesh the first pair is on data
+        index 0, and every rank of its model group must call this."""
         cfg = self.config
         img1, img2 = img1[:1], img2[:1]
         with precision_scope(self.dtype):

@@ -16,6 +16,15 @@ models/adversarial_learner.py:72-204):
 
 with rho the per-sample masked Charbonnier sum (ops/losses.py). PWC is
 frozen: its forward runs without autograd.
+
+On a mesh (parallel/mesh.py) the batch is this rank's rows of the global
+batch, and each loss is this rank's share of the global batch's: the means
+are divided by n_data, the recover loss's pixel count is the global one,
+and the sample-0 entries (reconstruction_loss, denominator_red_rate, ...)
+are zero except on data index 0. Summed over the data group they are the
+losses of one process on the global batch. A model axis wider than one
+splits PWC's cost volume (models/pwcnet.py), as JAX's objective.py:55-77
+shards its offsets.
 """
 
 from __future__ import annotations
@@ -31,6 +40,7 @@ from ..ops.flow import standardize_flow
 from ..ops.losses import charbonnier_loss
 from ..ops.metrics import compute_all_iou
 from ..ops.resize import resize_bilinear, resize_bilinear_composed, resize_nearest
+from ..parallel.mesh import Mesh
 
 
 class ForwardOutputs(NamedTuple):
@@ -45,11 +55,13 @@ class ForwardOutputs(NamedTuple):
 
 class AdversarialObjective:
     """Holds the generator, the recover net and the frozen PWC net for one
-    config on one device. Weights come from `load_state_dicts` (see
-    convert.py) or from a training save (train/checkpoint.py)."""
+    config on one device, and this rank's `mesh` (None: the trivial one).
+    Weights come from `load_state_dicts` (see convert.py) or from a training
+    save (train/checkpoint.py)."""
 
-    def __init__(self, config: Config, device=None):
+    def __init__(self, config: Config, device=None, mesh: Mesh | None = None):
         self.config = config
+        self.mesh = mesh if mesh is not None else Mesh()
         self.device = resolve_device(device)
         self.dtype = compute_dtype(config.compute_dtype)
         self.generator = GeneratorNet(dtype=self.dtype).to(self.device).eval()
@@ -59,6 +71,7 @@ class AdversarialObjective:
             flow_pred_lvl=config.pwc_flow_pred_lvl,
             search_range=config.pwc_search_range,
             dtype=self.dtype,
+            mesh=self.mesh,
         ).to(self.device).eval()
 
     def load_state_dicts(self, gen_state: dict, pwc_state: dict) -> None:
@@ -107,9 +120,20 @@ class AdversarialObjective:
         return self.generator(image, standardize_flow(flow))
 
     # --- losses -----------------------------------------------------------
+    def _share(self, mean: torch.Tensor) -> torch.Tensor:
+        """This rank's share of a mean over the global batch."""
+        n = self.mesh.n_data
+        return mean if n == 1 else mean / n
+
+    def _first(self, per_sample: torch.Tensor) -> torch.Tensor:
+        """Sample 0 of the global batch on data index 0, zero elsewhere."""
+        first = per_sample[0]
+        return first if self.mesh.data_index == 0 else torch.zeros_like(first)
+
     def losses_from_flow(self, image: torch.Tensor, flow: torch.Tensor) -> ForwardOutputs:
         """All two-player losses from the working-resolution image and flow:
-        the three recover calls share the recover net's weights."""
+        the three recover calls share the recover net's weights. On a mesh,
+        this rank's shares (module docstring)."""
         cfg = self.config
         mask = self.generate_mask(image, flow)
         mask_c = 1.0 - mask
@@ -124,23 +148,23 @@ class AdversarialObjective:
         rec_loss = charbonnier_loss(flow, pred, mask, cbn)              # (B,)
         rec_compl_loss = charbonnier_loss(flow, pred_c, mask_c, cbn)    # (B,)
         image_prior = charbonnier_loss(flow, pred_img, torch.ones_like(flow), cbn)
-        num_pixels = cfg.img_width * cfg.img_height * image.shape[0]
+        num_pixels = cfg.img_width * cfg.img_height * image.shape[0] * self.mesh.n_data
         recover_loss = (rec_loss.sum() + rec_compl_loss.sum() + image_prior.sum()) / num_pixels
 
         den = charbonnier_loss(flow, pred_img, mask, cbn) + cfg.epsilon
-        red_rate_object = (1.0 - rec_loss / den).mean()
+        red_rate_object = self._share((1.0 - rec_loss / den).mean())
         den_c = charbonnier_loss(flow, pred_img, mask_c, cbn) + cfg.epsilon
-        red_rate_compl = (1.0 - rec_compl_loss / den_c).mean()
+        red_rate_compl = self._share((1.0 - rec_compl_loss / den_c).mean())
 
         losses = {
             "generator": red_rate_object + red_rate_compl,
             "recover": recover_loss,
             "red_rate": red_rate_object,
             "red_rate_compl": red_rate_compl,
-            "reconstruction_loss": rec_loss[0],
-            "reconstruction_compl_loss": rec_compl_loss[0],
-            "denominator_red_rate": den[0],
-            "denominator_red_rate_compl": den_c[0],
+            "reconstruction_loss": self._first(rec_loss),
+            "reconstruction_compl_loss": self._first(rec_compl_loss),
+            "denominator_red_rate": self._first(den),
+            "denominator_red_rate_compl": self._first(den_c),
         }
         return ForwardOutputs(
             losses=losses, image=image, flow=flow, mask=mask, flow_masked=flow_masked,

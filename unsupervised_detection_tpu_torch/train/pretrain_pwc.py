@@ -33,6 +33,7 @@ from ..device import compute_dtype, precision_scope, resolve_device
 from ..models import PWCNet
 from ..ops.resize import resize_bilinear
 from ..ops.warp import dense_image_warp
+from ..parallel.mesh import world
 from . import checkpoint as ckpt
 from .optim import OptaxAdam, warmup_cosine_lr
 
@@ -242,7 +243,13 @@ def pretrain_pwc(config: Config, steps: int, verbose: bool = True, batch_fn=None
     min(200, steps//10) steps and decays to 5% (`warmup_cosine_lr`). With
     config.checkpoint_dir set, scope saves `pwc-<i>` every `save_every`
     steps and `pwc-final` are written (train/checkpoint.py), which
-    `--flow_ckpt` reads."""
+    `--flow_ckpt` reads. One process only: a world of several raises."""
+    world_size = world()[1]
+    if world_size > 1:
+        raise SystemExit(
+            f"pretrain_pwc runs in one process, not in a world of {world_size}: PWC "
+            "pretraining has no mesh in the JAX package (train/pretrain_pwc.py takes "
+            "none), so the port does not add one; run it without torchrun")
     trainer = PWCPretrainer(config, steps, learning_rate, params, lr_schedule, object_weight,
                             boundary_weight, boundary_mode, device)
     dev = trainer.device
