@@ -87,6 +87,24 @@ Phases, in order, each printed with its wall seconds:
              driver's writer is None, as in the JAX package, and PyTorch's
              `torch.utils.tensorboard.SummaryWriter` stands in for the
              writer run;
+* jmean   -- the flagship's trained weights end to end: the committed
+             export weights_torch/flagship_v2lr_r2.npz (its sha256
+             printed; generator cnum 32, PWC 6 levels r=2) through
+             `e2e_jmean.main` on the 5 x 24 frames it renders at 192x384:
+             `test_generator` in float32 and bfloat16 (batch 8), the
+             ensemble CLI for the shifts -2, -1, 1, 2 at batch 1 writing
+             its buffers, `post_processing` with the PWC backend on the card
+             and the native CRF at the working and the original resolution,
+             the report; launches per stage (5 cost-volume and 4 warp per
+             raw batch, ensemble frame and propagated pair, no backward or
+             tile-copy launch); the raw float32 IoU of the dataset and of
+             each sequence, the soft score, the propagated average and both
+             CRF IoUs against experiments/e2e_jmean/REPORT.md; bfloat16
+             against float32 on the raw and the shift +1 ensemble's dataset
+             IoU and MAE, each with a control the limits must flag (the
+             central crop skipped; every member at crop 1.0); each kernel
+             against its plain version on one raw batch's inputs in both
+             dtypes; each stage's seconds and seconds per frame;
 * train   -- the two-player training game at full width (reader 384x640,
              working 192x384, PWC 6 levels r=2, generator cnum 32, recover
              f=0.25) with seeded random weights: one `generator_step` and one
@@ -217,8 +235,8 @@ from unsupervised_detection_tpu_torch.ops.cost_volume import (  # noqa: E402
 from unsupervised_detection_tpu_torch.ops.warp import (  # noqa: E402
     dense_image_warp, warp_backward, warp_backward_plain, warp_plain)
 
-PHASES = ("card", "build", "kernels", "path", "eval", "postproc", "tf1", "train", "pretrain",
-          "mesh", "repro", "profile")
+PHASES = ("card", "build", "kernels", "path", "eval", "postproc", "tf1", "jmean", "train",
+          "pretrain", "mesh", "repro", "profile")
 BATCH = 8
 # PWC pyramid level -> (H, W, C) at the 384x640 reader resolution
 LEVELS = {6: (6, 10, 196), 5: (12, 20, 128), 4: (24, 40, 96), 3: (48, 80, 64), 2: (96, 160, 32)}
@@ -1706,16 +1724,18 @@ def phase_pretrain(report: dict) -> None:
     report["pretrain"] = out
 
 
-def postproc_counts(what: str, forwards: int, warps: int | None = None) -> dict:
-    """Hold the launches since the last reset_counts to `forwards` PWC
-    forwards (5 cost volume and 4 warp each), or to `warps` warps alone,
-    with no backward and no tile-copy launch; returns the counts."""
-    counts = launch_counts()
+def postproc_counts(what: str, forwards: int, warps: int | None = None,
+                    counts: dict | None = None, phase: str = "postproc") -> dict:
+    """Hold the launches since the last reset_counts (or `counts`) to
+    `forwards` PWC forwards (5 cost volume and 4 warp each), or to `warps`
+    warps alone, with no backward and no tile-copy launch; returns the
+    counts."""
+    counts = launch_counts() if counts is None else counts
     want = {"cost_volume": 5 * forwards, "warp": 4 * forwards if warps is None else warps,
             "dynamic_copy": 0, "cost_volume_backward": 0, "warp_backward": 0}
-    log(f"postproc: {what}: launches {json.dumps(counts)}")
+    log(f"{phase}: {what}: launches {json.dumps(counts)}")
     if counts != want:
-        raise AssertionError(f"postproc {what}: launches {counts}, expected {want}")
+        raise AssertionError(f"{phase} {what}: launches {counts}, expected {want}")
     return counts
 
 
@@ -1909,22 +1929,28 @@ def postproc_dense(cfg: Config, nets: dict, batches, tmp: str) -> dict:
 
 
 class StageTimer:
-    """Wraps module functions to sum their wall seconds (nested calls
-    included in the caller's total)."""
+    """Wraps module functions to sum their wall seconds and the kernel
+    launches made during them (nested calls included in the caller's
+    totals)."""
 
     def __init__(self):
         self.seconds: dict[str, float] = {}
+        self.launches: dict[str, dict] = {}
         self._saved = []
 
     def wrap(self, module, name: str) -> None:
         fn = getattr(module, name)
 
         def timed(*args, **kw):
+            before = launch_counts()
             t0 = time.perf_counter()
             try:
                 return fn(*args, **kw)
             finally:
                 self.seconds[name] = self.seconds.get(name, 0.0) + time.perf_counter() - t0
+                total = self.launches.setdefault(name, dict.fromkeys(before, 0))
+                for k, n in launch_counts().items():
+                    total[k] += n - before[k]
 
         self._saved.append((module, name, fn))
         setattr(module, name, timed)
@@ -2386,6 +2412,172 @@ def phase_tf1(report: dict) -> None:
                  trips[TF1_TRAIN_RANGE]["prefix"], report)
         tf1_pwc_backend(tmp, weights[TF1_EVAL_RANGE], trips[TF1_EVAL_RANGE]["prefix"], report)
         tf1_train(tmp, trips[TF1_TRAIN_RANGE]["prefix"], report)
+
+
+# --- phase jmean: the flagship's trained weights, end to end ------------------
+# The committed export of the flagship (experiments/game_state_v2lr/model.best
+# with experiments/pwc_ckpt_v2/pwc-final, r=2; weights_torch/README.md) on
+# the 5 x 24 frames that e2e_jmean renders, against the JAX chain's run of
+# the same stages (experiments/e2e_jmean/REPORT.md:11-18 and :24-28).
+# Limits, fixed before the first run on the card:
+# * raw float32, the dataset within 0.005 and each sequence within 0.01
+#   (tests/test_torch_jmean.py's limits: the card's cv2 encodes the JPEGs,
+#   and the report rounds to 4 digits);
+# * bfloat16 against float32 on the card, raw and the ensemble's 4-crop
+#   mean at shift +1: dataset IoU and MAE within 1e-3 each (the report's
+#   own reading is +0.0001 IoU). Controls: the raw run with the central crop
+#   skipped, the ensemble with every member at crop 1.0, each of which
+#   must exceed one of the two;
+# * the soft score within 0.01; the forward-propagated running average
+#   within 0.03 (the card's cv2 4.13.0 remaps with 1/32-pixel fixed-point
+#   weights: 1.18e-2 on PWC flows); the CRF at the working and at the
+#   original resolution within 0.02.
+JMEAN_REPORT = {"raw_fp32": 0.6984, "soft_score": 0.6558, "propagated_f": 0.4431,
+                "post_crf": 0.6953, "post_crf_original": 0.5471}
+JMEAN_TOL = {"raw_fp32": 0.005, "soft_score": 0.01, "propagated_f": 0.03,
+             "post_crf": 0.02, "post_crf_original": 0.02}
+JMEAN_SEQUENCE_IOU = {"pan_a": 0.6537, "zoom_b": 0.7459, "drift_c": 0.7278,
+                      "shear_d": 0.7367, "wobble_e": 0.6276}
+JMEAN_SEQUENCE_TOL = 0.01
+JMEAN_BF16_IOU_TOL = JMEAN_BF16_MAE_TOL = 1e-3
+
+
+def jmean_bf16(what: str, fp32: dict, bf16: dict, control: dict, misses: list) -> None:
+    """Hold `bf16`'s dataset IoU and MAE to `fp32`'s, and see that the
+    limits flag `control`; appends what misses to `misses`."""
+    diffs = {name: (abs(r["dataset_iou"] - fp32["dataset_iou"]),
+                    abs(r["dataset_mae"] - fp32["dataset_mae"]))
+             for name, r in (("bfloat16", bf16), ("control", control))}
+    (d_iou, d_mae), (c_iou, c_mae) = diffs["bfloat16"], diffs["control"]
+    log(f"jmean: {what} bfloat16 vs float32 (float32 IoU {fp32['dataset_iou']}, MAE "
+        f"{fp32['dataset_mae']}): abs diff IoU {d_iou} (tol {JMEAN_BF16_IOU_TOL}), MAE {d_mae} "
+        f"(tol {JMEAN_BF16_MAE_TOL}); control: IoU {c_iou}, MAE {c_mae}")
+    if not (d_iou <= JMEAN_BF16_IOU_TOL and d_mae <= JMEAN_BF16_MAE_TOL):
+        misses.append(f"{what} bfloat16 differs from float32 by IoU {d_iou}, MAE {d_mae}")
+    if c_iou <= JMEAN_BF16_IOU_TOL and c_mae <= JMEAN_BF16_MAE_TOL:
+        misses.append(f"{what}: the bfloat16 limits do not flag the control")
+
+
+def jmean_extra_runs(out: str, ckpt: str, res: dict, misses: list) -> None:
+    """Off the chain: the raw control, the ensemble at shift +1 in bfloat16
+    and its control, and each kernel against its plain version on one raw
+    batch's inputs in both dtypes."""
+    from unsupervised_detection_tpu_torch import e2e_jmean, parse_flags, test_generator
+    from unsupervised_detection_tpu_torch import test_generator_ensemble
+    from unsupervised_detection_tpu_torch.eval import TEST_CROPS
+    from unsupervised_detection_tpu_torch.eval import ensemble as ensemble_module
+    from unsupervised_detection_tpu_torch.eval.evaluator import build_test_pipeline
+    from unsupervised_detection_tpu_torch.train.checkpoint import load_eval_checkpoint
+
+    frames = len(e2e_jmean.SEQS) * e2e_jmean.FRAMES
+    bf16_flags = e2e_jmean.common_flags(out, ckpt, "bfloat16")
+    control, _ = run_captured(test_generator.main, bf16_flags + ["--test_crop=1.0"],
+                              prefix="jmean: raw control: ")
+    jmean_bf16("raw", res["raw"]["float32"], res["raw"]["bfloat16"], control, misses)
+
+    ens_flags = bf16_flags + [f"--batch_size={e2e_jmean.BUFFER_BATCH}"]
+    ens16, _ = run_captured(test_generator_ensemble.main, ens_flags,
+                            prefix="jmean: ensemble bfloat16 shift 1: ")
+    ensemble_module.TEST_CROPS = [1.0] * len(TEST_CROPS)
+    try:
+        ens_control, _ = run_captured(test_generator_ensemble.main, ens_flags,
+                                      prefix="jmean: ensemble control: ")
+    finally:
+        ensemble_module.TEST_CROPS = TEST_CROPS
+    if not ens16["frames"] == ens_control["frames"] == frames:
+        raise AssertionError(f"jmean: bfloat16 ensembles over {ens16['frames']} and "
+                             f"{ens_control['frames']} frames, expected {frames}")
+    jmean_bf16("ensemble shift 1", res["buffer"]["1"], ens16, ens_control, misses)
+
+    for dn in ("float32", "bfloat16"):
+        cfg = parse_flags(e2e_jmean.common_flags(out, ckpt, dn))
+        ev = Evaluator(cfg, device="cuda")
+        ev.load_state_dicts(*load_eval_checkpoint(ckpt, cfg.pwc_search_range))
+        first = next(iter(build_test_pipeline(cfg)))
+        check_step_kernels(lambda: ev.infer_metrics(*ev.device_batch(first)),
+                           f"jmean raw batch {cfg.batch_size}")
+
+
+def phase_jmean(report: dict) -> None:
+    """The flagship's committed weights through the end-to-end chain
+    (`e2e_jmean.main`: render, raw in both dtypes, the ensemble buffer for
+    four shifts, post-processing with the PWC backend and the native CRF,
+    the report) on the card; every stage held to the JAX chain's report,
+    bfloat16 to float32 with controls, launches per stage, the kernels on
+    one raw batch."""
+    import hashlib
+    import tempfile
+
+    from unsupervised_detection_tpu_torch import e2e_jmean
+    from unsupervised_detection_tpu_torch.postproc import crf, propagate, soft_score
+
+    ckpt = e2e_jmean.CKPT_FILE
+    with open(ckpt, "rb") as fh:
+        digest = hashlib.sha256(fh.read()).hexdigest()
+    log(f"jmean: checkpoint {os.path.relpath(ckpt, e2e_jmean.REPO)} sha256 {digest}, "
+        f"{os.path.getsize(ckpt)} bytes")
+    frames = len(e2e_jmean.SEQS) * e2e_jmean.FRAMES
+    timer = StageTimer()
+    for name in ("render_dataset", "raw_stage", "buffer_stage", "post_stage"):
+        timer.wrap(e2e_jmean, name)
+    timer.wrap(soft_score, "buffer_to_soft_score")
+    timer.wrap(propagate, "propagate_sequences")
+    timer.wrap(crf, "run_crf")
+    timer.wrap(crf, "run_crf_original_resolution")
+    misses: list = []
+    with tempfile.TemporaryDirectory() as out:
+        # the main path: the chain's CLI, counts from 0
+        reset_counts()
+        t0 = time.perf_counter()
+        try:
+            res, _ = run_captured(e2e_jmean.main, [out], prefix="jmean: ")
+            torch.cuda.synchronize()
+        finally:
+            timer.restore()
+        wall = time.perf_counter() - t0
+        # one forward per raw batch (two dtypes), per ensemble frame and
+        # shift, and per propagated pair (two passes)
+        pairs = 2 * len(e2e_jmean.SEQS) * (e2e_jmean.FRAMES - 1)
+        forwards = {"raw_stage": 2 * frames // e2e_jmean.RAW_BATCH,
+                    "buffer_stage": len(e2e_jmean.SHIFTS) * frames, "post_stage": pairs}
+        for name, n in forwards.items():
+            postproc_counts(name, n, counts=timer.launches[name], phase="jmean")
+        total = postproc_counts("the chain", sum(forwards.values()), phase="jmean")
+        report["launches_jmean"] = total
+
+        for key, want in JMEAN_REPORT.items():
+            got = res[key]
+            log(f"jmean: {key} {got} (report {want}, tol {JMEAN_TOL[key]})")
+            if got is None or not abs(got - want) <= JMEAN_TOL[key]:
+                misses.append(f"{key} {got}, report {want} +- {JMEAN_TOL[key]}")
+        per_seq = res["per_seq"]["raw_fp32"]
+        log(f"jmean: raw_fp32 per sequence {json.dumps(per_seq)} (report "
+            f"{json.dumps(JMEAN_SEQUENCE_IOU)}, tol {JMEAN_SEQUENCE_TOL})")
+        if list(per_seq) != list(JMEAN_SEQUENCE_IOU):
+            misses.append(f"raw_fp32 sequences {list(per_seq)}")
+        for seq, want in JMEAN_SEQUENCE_IOU.items():
+            if not abs(per_seq.get(seq, -1.0) - want) <= JMEAN_SEQUENCE_TOL:
+                misses.append(f"raw_fp32 {seq} {per_seq.get(seq)}, report {want}")
+        for key in ("soft_score", "post_crf"):
+            log(f"jmean: {key} per sequence {json.dumps(res['per_seq'][key])} (reported)")
+
+        jmean_extra_runs(out, ckpt, res, misses)
+
+    sec, stage_s = timer.seconds, res["seconds"]
+    seconds = {"render": sec["render_dataset"], "raw_fp32": stage_s["raw_fp32"],
+               "raw_bf16": stage_s["raw_bf16"], "buffer": sec["buffer_stage"],
+               "soft_score": sec["buffer_to_soft_score"] - sec["propagate_sequences"],
+               "propagation": sec["propagate_sequences"], "crf": sec["run_crf"],
+               "crf_original": sec["run_crf_original_resolution"], "post": sec["post_stage"]}
+    per_frame = {k: v / frames for k, v in seconds.items()}
+    log(f"jmean: the chain {wall:.2f} s; seconds {json.dumps(seconds)}; seconds per frame "
+        f"({frames} frames; the buffer's 4 shifts together) {json.dumps(per_frame)}; CRF "
+        f"backend {crf.backend_name()} on {torch.get_num_threads()} host threads of "
+        f"{os.cpu_count()} [{card_line()}]")
+    if crf.backend_name() != "native":
+        misses.append(f"the chain ran the {crf.backend_name()} CRF")
+    if misses:
+        raise AssertionError("jmean: " + "; ".join(misses))
 
 
 def phase_profile(forwards: dict, images, iters: int = 3, top: int = 12) -> None:
@@ -2905,6 +3097,8 @@ def main() -> int:
             phase_postproc(report)
         elif phase == "tf1":
             phase_tf1(report)
+        elif phase == "jmean":
+            phase_jmean(report)
         elif phase == "train":
             phase_train(report)
         elif phase == "pretrain":
@@ -2930,6 +3124,7 @@ def main() -> int:
             "launches_eval": 0 if backward else report["launches_eval"]["float32"][name],
             "launches_postproc": report["launches_postproc"][name],
             "launches_tf1": report["launches_tf1"].get(name, 0),
+            "launches_jmean": report["launches_jmean"][name],
             "launches_train": 0 if backward else report["launches_train"][name],
             "launches_pretrain": report["launches_pretrain"][name],
             "launches_mesh": report["launches_mesh"][name],

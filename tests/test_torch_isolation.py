@@ -14,7 +14,7 @@ import pytest
 import torch
 
 from unsupervised_detection_tpu.config import Config as JaxConfig
-from unsupervised_detection_tpu_torch import Config, parse_flags, pretrain_flow
+from unsupervised_detection_tpu_torch import Config, e2e_jmean, parse_flags, pretrain_flow
 from unsupervised_detection_tpu_torch import post_processing
 from unsupervised_detection_tpu_torch import pretrain_recover as pretrain_recover_cli
 from unsupervised_detection_tpu_torch import test_generator_ensemble
@@ -93,6 +93,11 @@ def test_entry_points_default_to_the_card(tmp_path):
         pretrain_recover_cli.main(["--allow_random_flow", "--pretrain_steps=1"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         test_generator_ensemble.main(["--batch_size=1"])
+    # the end-to-end chain, before it renders anything
+    out_root = tmp_path / "jmean"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        e2e_jmean.main([str(out_root)])
+    assert not out_root.exists()
     # the PWC backend, alone and through the post-processing CLI, before it
     # reads its checkpoint
     missing = str(tmp_path / "pwc.npz")

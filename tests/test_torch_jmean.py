@@ -5,12 +5,16 @@ that tools/exp_e2e_jmean.py renders (seed 17, as the tool calls it), the
 committed flagship checkpoints (experiments/game_state_v2lr/model.best +
 experiments/pwc_ckpt_v2/pwc-final, search range 2) exported by
 tools/export_torch_checkpoint.py, and the tool's own raw-stage flags
-(reader = working = 192x384, batch 8, temporal shift 1, test_crop 0.9).
+(reader = working = 192x384, batch 8, temporal shift 1, test_crop 0.9),
+run through the raw stage of the port's chain
+(unsupervised_detection_tpu_torch/e2e_jmean.py). The chain's committed
+weights and its renderer are held to the exporter's and the tool's.
 """
 
 import importlib.util
 import os
 
+import cv2
 import numpy as np
 import pytest
 
@@ -18,8 +22,8 @@ from torch_parity import GAME_CKPT, PWC_CKPT, REPO, committed_checkpoints, torch
 from unsupervised_detection_tpu.config import parse_flags as jax_parse_flags
 from unsupervised_detection_tpu.eval.evaluator import Evaluator as JaxEvaluator
 from unsupervised_detection_tpu.eval.evaluator import evaluate_dataset as jax_evaluate_dataset
+from unsupervised_detection_tpu_torch import e2e_jmean
 from unsupervised_detection_tpu_torch.eval import Evaluator
-from unsupervised_detection_tpu_torch.test_generator import main
 
 _threads = torch_threads(2)
 
@@ -49,14 +53,48 @@ def _tool(name):
 
 @pytest.fixture(scope="module")
 def gate(tmp_path_factory):
-    """(out_root, flags, jmean tool): the rendered tree under out_root/DAVIS,
-    the exported checkpoint and the raw stage's float32 flags."""
+    """(out_root, checkpoint, jmean tool): the tool's rendered tree under
+    out_root/DAVIS and a fresh export of the flagship checkpoints."""
     jmean = _tool("exp_e2e_jmean")
     out_root = str(tmp_path_factory.mktemp("e2e_jmean"))
     jmean.render_dataset(os.path.join(out_root, "DAVIS"))
     ckpt = os.path.join(out_root, "flagship.npz")
     assert _tool("export_torch_checkpoint").main([ckpt, GAME_CKPT, PWC_CKPT]) == 0
-    return out_root, jmean._common_flags(out_root, ckpt, "float32"), jmean
+    return out_root, ckpt, jmean
+
+
+def test_committed_weights_equal_a_fresh_export(gate):
+    # the chain's default checkpoint holds the same arrays as the export of
+    # the committed JAX saves
+    _, ckpt, _ = gate
+    assert e2e_jmean.CKPT_FILE == os.path.join(REPO, "weights_torch", "flagship_v2lr_r2.npz")
+    with np.load(e2e_jmean.CKPT_FILE) as got, np.load(ckpt) as want:
+        assert sorted(got.files) == sorted(want.files)
+        for key in want.files:
+            assert got[key].dtype == want[key].dtype, key
+            np.testing.assert_array_equal(got[key], want[key], err_msg=key)
+
+
+def test_port_renders_the_tools_tree(gate, tmp_path):
+    out_root, _, _ = gate
+    want_root = os.path.join(out_root, "DAVIS")
+    got_root = str(tmp_path / "DAVIS")
+    e2e_jmean.render_dataset(got_root)
+
+    def files(root):
+        return sorted(os.path.relpath(os.path.join(d, f), root)
+                      for d, _, names in os.walk(root) for f in names)
+
+    names = files(want_root)
+    assert files(got_root) == names and len(names) == 3 + 2 * 120
+    for name in names:
+        got, want = os.path.join(got_root, name), os.path.join(want_root, name)
+        if name.endswith(".txt"):
+            assert open(got).read() == open(want).read(), name
+        else:
+            np.testing.assert_array_equal(cv2.imread(got, cv2.IMREAD_UNCHANGED),
+                                          cv2.imread(want, cv2.IMREAD_UNCHANGED),
+                                          err_msg=name)
 
 
 def _record(monkeypatch, owner, frames):
@@ -79,16 +117,20 @@ def _record(monkeypatch, owner, frames):
     monkeypatch.setattr(owner, "infer_metrics", recording_infer)
 
 
-def test_flagship_raw_jmean_on_cpu(gate, tmp_path, monkeypatch, capsys):
-    out_root, flags, jmean = gate
+def test_flagship_raw_jmean_on_cpu(gate, tmp_path, monkeypatch):
+    out_root, ckpt, jmean = gate
+    flags = jmean._common_flags(out_root, ckpt, "float32")
+    assert e2e_jmean.common_flags(out_root, ckpt, "float32") == flags
     port = {"category": [], "metrics": []}
     _record(monkeypatch, Evaluator, port)
-    res = main(flags, device="cpu")
-    out = capsys.readouterr().out
+    res = e2e_jmean.raw_stage(out_root, ckpt, "float32", device="cpu")
 
     # the CLI's lines, read as the J-mean tool reads them
-    dataset_iou = jmean.parse_avg_iou(out)
-    per_seq = jmean.parse_category_ious(out)
+    dataset_iou = res["dataset_iou"]
+    per_seq = res["category_iou"]
+    with open(os.path.join(out_root, "raw_fp32.log")) as fh:
+        out = fh.read()
+    assert dataset_iou == jmean.parse_avg_iou(out) and per_seq == jmean.parse_category_ious(out)
     assert res["frames"] == 120 and list(per_seq) == list(REPORT_SEQUENCE_IOU)
     assert abs(dataset_iou - REPORT_DATASET_IOU) <= DATASET_TOL, (dataset_iou, per_seq)
     for seq, want in REPORT_SEQUENCE_IOU.items():

@@ -17,17 +17,22 @@ The filtering engine is the permutohedral lattice (permutohedral.py), the
 same algorithm pydensecrf uses, or the native C++ solver
 (native/densecrf.py). A copy of unsupervised_detection_tpu/postproc/crf.py,
 which the port does not import; its native solver is built by the port's
-binding at the first call that asks for it.
+binding at the first call that asks for it. Unlike the JAX package's,
+`run_crf` and `run_crf_original_resolution` refine a tree's frames on
+several host threads at once; each frame's output and the mean IoU are
+those of the one-thread loop.
 """
 
 from __future__ import annotations
 
 import functools
 import os
+from concurrent import futures
 from typing import Optional
 
 import numpy as np
 import scipy.io as sio
+import torch
 from scipy.ndimage import gaussian_filter
 
 from .permutohedral import PermutohedralLattice
@@ -161,36 +166,61 @@ def select_candidate(pred_mask, pred_f, pred_b, gt_mask):
     return pred_b
 
 
-def run_crf(path_soft: str, sxy: float, srgb: float, scomp: float,
-            gauss_k: float, out_path: str = "./post_processed_davis") -> float:
-    """Per-frame CRF over the soft-score tree (crf_refine.py:9-63)."""
-    seq_names = os.listdir(path_soft)
+def _refine_frames(refine_frame, frames) -> float:
+    """Mean of `refine_frame(*frame)`'s IoU over `frames`, the frames spread
+    over the host threads PyTorch computes with (the native solver releases
+    the interpreter lock while it runs); the IoUs are summed in frame order,
+    so the mean does not depend on the thread count."""
+    _native_build()     # build the solver once, before the threads need it
+    workers = torch.get_num_threads()
+    if workers > 1:
+        with futures.ThreadPoolExecutor(workers) as pool:
+            ious = list(pool.map(lambda frame: refine_frame(*frame), frames))
+    else:
+        ious = [refine_frame(*frame) for frame in frames]
     sum_iou = 0.0
-    total = 0.0
-    for seq in seq_names:
+    for iou in ious:
+        sum_iou += iou
+    return sum_iou / float(len(frames))
+
+
+def _sequence_frames(path_soft: str, out_path: str) -> list:
+    """(sequence, its soft-score directory, its output directory, frame
+    index) for every frame of the soft-score tree; makes the output
+    directories and prints each."""
+    frames = []
+    for seq in os.listdir(path_soft):
         seq_path = os.path.join(path_soft, seq)
         seq_len = len([f for f in os.listdir(seq_path) if f.endswith(".mat")])
         out_dir = os.path.join(out_path, seq)
         os.makedirs(out_dir, exist_ok=True)
         print(out_dir)
-        for k in range(seq_len):
-            result = sio.loadmat(os.path.join(seq_path, "result_%d.mat" % (k + 1)))
-            total += 1.0
-            pred_mask = np.float32(np.squeeze(result["pred_mask"]))
-            pred_f = np.float32(np.squeeze(result["running_avg_f"]))
-            pred_b = np.float32(np.squeeze(result["running_avg_b"]))
-            image = result["img1"]
-            gt_mask = np.float32(np.squeeze(result["gt_mask"]))
+        frames += [(seq, seq_path, out_dir, k) for k in range(seq_len)]
+    return frames
 
-            mask = select_candidate(pred_mask, pred_f, pred_b, gt_mask)
-            mask_new, iou_new = refine_mask(mask, np.squeeze(image), gauss_k,
-                                            sxy, srgb, scomp, gt_mask)
-            sio.savemat(
-                os.path.join(out_dir, "result_%d.mat" % (k + 1)),
-                {"gt_mask": gt_mask, "soft_mask": mask, "mask": mask_new},
-            )
-            sum_iou += iou_new
-    return sum_iou / total
+
+def run_crf(path_soft: str, sxy: float, srgb: float, scomp: float,
+            gauss_k: float, out_path: str = "./post_processed_davis") -> float:
+    """Per-frame CRF over the soft-score tree (crf_refine.py:9-63)."""
+
+    def refine_frame(seq, seq_path, out_dir, k):
+        result = sio.loadmat(os.path.join(seq_path, "result_%d.mat" % (k + 1)))
+        pred_mask = np.float32(np.squeeze(result["pred_mask"]))
+        pred_f = np.float32(np.squeeze(result["running_avg_f"]))
+        pred_b = np.float32(np.squeeze(result["running_avg_b"]))
+        image = result["img1"]
+        gt_mask = np.float32(np.squeeze(result["gt_mask"]))
+
+        mask = select_candidate(pred_mask, pred_f, pred_b, gt_mask)
+        mask_new, iou_new = refine_mask(mask, np.squeeze(image), gauss_k,
+                                        sxy, srgb, scomp, gt_mask)
+        sio.savemat(
+            os.path.join(out_dir, "result_%d.mat" % (k + 1)),
+            {"gt_mask": gt_mask, "soft_mask": mask, "mask": mask_new},
+        )
+        return iou_new
+
+    return _refine_frames(refine_frame, _sequence_frames(path_soft, out_path))
 
 
 def run_crf_original_resolution(path_soft: str, path_img: str, path_gt: str,
@@ -202,40 +232,31 @@ def run_crf_original_resolution(path_soft: str, path_img: str, path_gt: str,
     image."""
     import cv2
 
-    seq_names = os.listdir(path_soft)
-    sum_iou = 0.0
-    total = 0.0
-    for seq in seq_names:
-        seq_path = os.path.join(path_soft, seq)
-        seq_len = len([f for f in os.listdir(seq_path) if f.endswith(".mat")])
-        out_dir = os.path.join(out_path, seq)
-        os.makedirs(out_dir, exist_ok=True)
-        print(out_dir)
-        for k in range(seq_len):
-            result = sio.loadmat(os.path.join(seq_path, "result_%d.mat" % (k + 1)))
-            total += 1.0
-            soft_mask = np.float32(np.squeeze(result["soft_mask"]))
+    def refine_frame(seq, seq_path, out_dir, k):
+        result = sio.loadmat(os.path.join(seq_path, "result_%d.mat" % (k + 1)))
+        soft_mask = np.float32(np.squeeze(result["soft_mask"]))
 
-            image = cv2.cvtColor(
-                cv2.imread(os.path.join(path_img, seq, "%05d.jpg" % k)),
-                cv2.COLOR_BGR2RGB,
-            )
-            gt_mask = cv2.imread(os.path.join(path_gt, seq, "%05d.png" % k),
-                                 cv2.IMREAD_GRAYSCALE) / 255.0
-            h_full, w_full = gt_mask.shape
-            hh, ww = int(h_full * 0.9), int(w_full * 0.9)
-            lo, hi = float(soft_mask.min()), float(soft_mask.max())
-            scale = 255.0 / (hi - lo) if hi != lo else 1.0
-            u8 = ((soft_mask - lo) * scale).astype(np.uint8)
-            resized = cv2.resize(u8, (ww, hh), interpolation=cv2.INTER_LINEAR)
-            resized = resized / (np.max(resized) + 1e-8)
-            mask = np.zeros((h_full, w_full))
-            dh, dw = (h_full - hh) // 2, (w_full - ww) // 2
-            mask[dh : dh + hh, dw : dw + ww] = resized
+        image = cv2.cvtColor(
+            cv2.imread(os.path.join(path_img, seq, "%05d.jpg" % k)),
+            cv2.COLOR_BGR2RGB,
+        )
+        gt_mask = cv2.imread(os.path.join(path_gt, seq, "%05d.png" % k),
+                             cv2.IMREAD_GRAYSCALE) / 255.0
+        h_full, w_full = gt_mask.shape
+        hh, ww = int(h_full * 0.9), int(w_full * 0.9)
+        lo, hi = float(soft_mask.min()), float(soft_mask.max())
+        scale = 255.0 / (hi - lo) if hi != lo else 1.0
+        u8 = ((soft_mask - lo) * scale).astype(np.uint8)
+        resized = cv2.resize(u8, (ww, hh), interpolation=cv2.INTER_LINEAR)
+        resized = resized / (np.max(resized) + 1e-8)
+        mask = np.zeros((h_full, w_full))
+        dh, dw = (h_full - hh) // 2, (w_full - ww) // 2
+        mask[dh : dh + hh, dw : dw + ww] = resized
 
-            mask_new, iou_new = refine_mask(mask, image, gauss_k, sxy, srgb,
-                                            scomp, gt_mask)
-            sio.savemat(os.path.join(out_dir, "result_%d.mat" % (k + 1)),
-                        {"mask": mask_new})
-            sum_iou += iou_new
-    return sum_iou / total
+        mask_new, iou_new = refine_mask(mask, image, gauss_k, sxy, srgb,
+                                        scomp, gt_mask)
+        sio.savemat(os.path.join(out_dir, "result_%d.mat" % (k + 1)),
+                    {"mask": mask_new})
+        return iou_new
+
+    return _refine_frames(refine_frame, _sequence_frames(path_soft, out_path))
