@@ -1,7 +1,7 @@
 """The PyTorch port stands alone: it imports neither JAX, the JAX package
-nor TensorFlow, its entry points (the train and pretraining CLIs among them)
-default to the card and raise without one, and its kernel wrappers take the
-plain version only for CPU tensors."""
+nor TensorFlow, its entry points (the train and pretraining CLIs and the
+recipe's among them) default to the card and raise without one, and its
+kernel wrappers take the plain version only for CPU tensors."""
 
 import dataclasses
 import importlib
@@ -21,6 +21,10 @@ from unsupervised_detection_tpu_torch import test_generator_ensemble
 from unsupervised_detection_tpu_torch.benchlib import build_forward
 from unsupervised_detection_tpu_torch.eval import EnsembleEvaluator, Evaluator
 from unsupervised_detection_tpu_torch.postproc.propagate import pwc_flow_fn
+from unsupervised_detection_tpu_torch.recipe import flow_diag as recipe_flow_diag
+from unsupervised_detection_tpu_torch.recipe import game as recipe_game
+from unsupervised_detection_tpu_torch.recipe import pretrain_pwc as recipe_pretrain_pwc
+from unsupervised_detection_tpu_torch.recipe import scenes as recipe_scenes
 from unsupervised_detection_tpu_torch.ops.cost_volume import cost_volume
 from unsupervised_detection_tpu_torch.ops.warp import dense_image_warp
 from unsupervised_detection_tpu_torch.train.learner import AdversarialLearner
@@ -106,6 +110,23 @@ def test_entry_points_default_to_the_card(tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         post_processing.main(["--flow_backend=pwc", f"--flow_ckpt={missing}",
                               f"--path_buffer={tmp_path}"])
+    # the recipe: the game, the diagnostic and the PWC recipe before they
+    # make a directory or read a checkpoint, the game's nets and the scenes'
+    # render
+    state_dir, pwc_dir = tmp_path / "game", tmp_path / "pwc"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        recipe_game.main(["1", "1", "1", "0.25", "64", "128", missing, str(state_dir)],
+                         environ={})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        recipe_game.Game(recipe_game.GameArgs(height=64, width=128))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        recipe_flow_diag.main([missing])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        recipe_pretrain_pwc.main(["1", "1", "64", "64", str(pwc_dir)], environ={})
+    assert not state_dir.exists() and not pwc_dir.exists()
+    draws = recipe_scenes.game_draws(torch.Generator().manual_seed(0), 1, 64, 64, 16)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        recipe_scenes.render_game(draws, 64, 64, 16)
 
 
 def test_wrappers_take_plain_version_only_on_cpu():

@@ -13,6 +13,9 @@ range as `pwc_search_range`. numpy reads it on a host without JAX or orbax.
   the port's torch.Generator. It is a superset of the evaluation file, so
   `test_generator` reads a trained `model.best` as it is. An exported JAX
   train state has no `rng` (JAX's key has no torch counterpart).
+* A save of the recipe's game (recipe/game.py) adds its loop's counters
+  and generators (`GAME_ENTRIES`); its `model.best` holds the evaluation
+  trees, its `model-<cycle>` no PWC weights (PWC is frozen there).
 * A scope save holds one tree (`pwc_params` or `rec_params`): what
   `--flow_ckpt` and `--recover_ckpt` name.
 
@@ -43,6 +46,8 @@ from .tf1_import import is_tf_checkpoint, load_tf1_eval, tf1_state_dict
 
 TREES = ("gen_params", "gen_stats", "pwc_params")
 TRAIN_ENTRIES = ("rec_params", "gen_opt", "rec_opt", "step", "rng")
+# a save of the recipe's game (recipe/game.py) adds its loop's state
+GAME_ENTRIES = ("cycle", "best", "lr_scale", "data_rng", "mask_rng")
 RANGE_KEY = "pwc_search_range"
 BEST_NAME = "model.best"
 MAX_TO_KEEP = 40  # reference saver: max_to_keep=40 (adversarial_learner.py:327)
@@ -122,7 +127,7 @@ def load_eval_trees(path: str):
     trees = load_trees(path)
     if RANGE_KEY not in trees:
         raise ValueError(f"{path}: not an evaluation checkpoint (no {RANGE_KEY})")
-    unexpected = set(trees) - set(TREES + TRAIN_ENTRIES + (RANGE_KEY,))
+    unexpected = set(trees) - set(TREES + TRAIN_ENTRIES + GAME_ENTRIES + (RANGE_KEY,))
     if unexpected:
         raise ValueError(f"{path}: unexpected entries {sorted(unexpected)}")
     return (trees["gen_params"], trees["gen_stats"], trees["pwc_params"],

@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from ..config import Config
@@ -83,6 +84,31 @@ def _clip_or_noise(rng: torch.Generator, grads, clip_value: float,
             .abs().to(device=g.device, dtype=g.dtype) for g in grads]
 
 
+def apply_update(state: TrainState, params: dict, grads, losses: dict, opt_name: str,
+                 can_change: bool, config: Config, adam_hparams: tuple,
+                 mesh: Mesh | None = None, lr_scale: float = 1.0):
+    """The part of a player's step after its loss, shared by the learner
+    and the recipe's game (recipe/game.py): the gradients of `params` (this
+    net's, by name) and the logged `losses` summed over the data group in
+    one all_reduce, the clip or the generator's noise (`can_change`), then
+    TF1 Adam on `state.<opt_name>` at the shared step (or the net's own,
+    without `adam_shared_step`) and the rate `adam_hparams[0] * lr_scale`
+    in float32 (the game's post-lock lever). Returns (state, the global
+    batch's losses detached, the applied gradients)."""
+    mesh = mesh if mesh is not None else Mesh()
+    keys = list(losses)
+    summed = mesh.sum_data(list(grads) + [losses[k] for k in keys])
+    grads, losses = summed[:len(grads)], dict(zip(keys, summed[len(grads):]))
+    grads = _clip_or_noise(state.rng, grads, config.gradient_clip,
+                           config.grad_noise_threshold, can_change)
+    opt = getattr(state, opt_name)
+    t = state.shared_adam_t if config.adam_shared_step else opt.count + 1
+    lr, *rest = adam_hparams
+    lr = float(np.float32(lr) * np.float32(lr_scale))
+    setattr(state, opt_name, adam_apply(dict(zip(params, grads)), opt, params, t, lr, *rest))
+    return state, {k: v.detach() for k, v in losses.items()}, grads
+
+
 class AdversarialLearner:
     """The objective's three nets on one device, the two players' steps and
     validation, on this rank's `mesh` (None: the trivial one). `device=None`
@@ -128,18 +154,8 @@ class AdversarialLearner:
                 grads = torch.autograd.grad(out.losses[loss_key], list(params.values()))
             finally:
                 net.requires_grad_(False)
-        # the global gradients and losses: one all_reduce over the data group
-        keys = list(out.losses)
-        summed = mesh.sum_data(list(grads) + [out.losses[k] for k in keys])
-        grads, out_losses = summed[:len(grads)], dict(zip(keys, summed[len(grads):]))
-        grads = _clip_or_noise(state.rng, grads, cfg.gradient_clip,
-                               cfg.grad_noise_threshold, can_change)
-        opt = getattr(state, opt_name)
-        t = state.shared_adam_t if cfg.adam_shared_step else opt.count + 1
-        new_opt = adam_apply(dict(zip(params, grads)), opt, params, t, *self.adam_hparams)
-        setattr(state, opt_name, new_opt)
-        losses = {k: v.detach() for k, v in out_losses.items()}
-        return state, losses, grads
+        return apply_update(state, params, grads, out.losses, opt_name, can_change, cfg,
+                            self.adam_hparams, mesh)
 
     def generator_step(self, state: TrainState, img1: torch.Tensor, img2: torch.Tensor,
                        draws: dict | None = None):
