@@ -124,6 +124,21 @@ Phases, in order, each printed with its wall seconds:
              v2 per dtype (128x192, batch 8, cosine, object weight 4): ms
              per step, 5 / 5 / 5 / 4 forward and backward launches per
              step, a held-out EPE that must fall, the kernels on one step;
+* gametools -- the game's instruments (`recipe/synth.py`, `inspect_mask.py`,
+             `game_stats.py`): the synthetic game through its CLI's `main`
+             at the tool's batch 8 and 200 warm-start steps, 100 of its 400
+             cycles (64x128, fp32, f=0.25, no PWC): its console lines
+             against the committed full run's, s per cycle, the final IoU,
+             no kernel launch, the first sub-step's 8 losses card against
+             CPU within 1e-4, `game_stats` on its log;
+             the mask inspector at 192x384, batch 16, on the flagship and on
+             the port's own detector (weights_torch/), each with the
+             flagship's PWC at r=2: its table, card against CPU (IoU, area
+             and in-gt within 1e-3, the centroid within 0.1 px, the
+             components equal), 1 warp launch in the render and 5
+             cost-volume and 4 warp in the PWC forward per inspection, s per
+             inspection, the kernels on its inputs; `game_stats` on the
+             port's two game logs and the JAX arms' four;
 * train   -- the two-player training game at full width (reader 384x640,
              working 192x384, PWC 6 levels r=2, generator cnum 32, recover
              f=0.25) with seeded random weights: one `generator_step` and one
@@ -223,6 +238,7 @@ import contextlib
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -256,7 +272,7 @@ from unsupervised_detection_tpu_torch.ops.warp import (  # noqa: E402
     dense_image_warp, warp_backward, warp_backward_plain, warp_plain)
 
 PHASES = ("card", "build", "kernels", "path", "eval", "postproc", "tf1", "jmean", "recipe",
-          "train", "pretrain", "mesh", "repro", "profile")
+          "gametools", "train", "pretrain", "mesh", "repro", "profile")
 BATCH = 8
 # PWC pyramid level -> (H, W, C) at the 384x640 reader resolution
 LEVELS = {6: (6, 10, 196), 5: (12, 20, 128), 4: (24, 40, 96), 3: (48, 80, 64), 2: (96, 160, 32)}
@@ -2782,6 +2798,20 @@ class SubStepProbe:
         return {k: b[k] - a[k] for k in a}
 
 
+def first_sub_step_rel(first: dict, cpu_game) -> dict:
+    """The 8 losses of a `SubStepProbe`'s first sub-step against the same
+    weights and inputs in `cpu_game`, float32: relative differences (the
+    reduction rates relative to their ratios, k - value)."""
+    cpu_game.state.generator.load_state_dict(first["gen"])
+    cpu_game.state.recover.load_state_dict(first["rec"])
+    with torch.no_grad(), precision_scope(torch.float32):
+        want = {k: float(v) for k, v in cpu_game.objective.losses_from_flow(
+            first["image"], first["flow"]).losses.items()}
+    return {k: abs(first["losses"][k] - v) / max(RECIPE_RATE_TERMS.get(k, 0) - v
+                                                 if k in RECIPE_RATE_TERMS else abs(v), 1e-30)
+            for k, v in want.items()}
+
+
 def recipe_game_run(dn: str, state_dir: str, env: dict):
     from unsupervised_detection_tpu_torch.e2e_jmean import CKPT_FILE
     from unsupervised_detection_tpu_torch.recipe import game
@@ -2843,16 +2873,8 @@ def recipe_game(report: dict) -> dict:
 
         # the first sub-step on the CPU: the same weights and inputs
         first = out["float32"]["first"]
-        cpu = game.Game(game.GameArgs(batch=g["batch"], height=g["height"], width=g["width"],
-                                      device="cpu"))
-        cpu.state.generator.load_state_dict(first["gen"])
-        cpu.state.recover.load_state_dict(first["rec"])
-        with torch.no_grad(), precision_scope(torch.float32):
-            want_losses = {k: float(v) for k, v in cpu.objective.losses_from_flow(
-                first["image"], first["flow"]).losses.items()}
-        rel = {k: abs(first["losses"][k] - v) / max(RECIPE_RATE_TERMS.get(k, 0) - v
-                                                     if k in RECIPE_RATE_TERMS else abs(v), 1e-30)
-               for k, v in want_losses.items()}
+        rel = first_sub_step_rel(first, game.Game(game.GameArgs(
+            batch=g["batch"], height=g["height"], width=g["width"], device="cpu")))
         log(f"recipe: game first sub-step ({first['player']}) card vs CPU losses relative "
             f"{json.dumps(rel)} (tol {RECIPE_LOSS_RTOL})")
         if not all(r <= RECIPE_LOSS_RTOL for r in rel.values()):
@@ -3006,6 +3028,186 @@ def phase_recipe(report: dict) -> None:
             total[k] += v
     report["launches_recipe"] = total
     log(f"recipe: launches over the phase's card runs {json.dumps(total)}; seconds "
+        f"{json.dumps(t)}")
+
+
+# The game's instruments (recipe/synth.py, inspect_mask.py, game_stats.py).
+# The synthetic game at the tool's batch 8 and 200 warm-start steps (64x128,
+# fp32, f=0.25, cuDNN deterministic), cut from the tool's 400 cycles to 100:
+# at 0.24 s per cycle alone and 0.42 within the whole script on an H100,
+# the 400 took the phase past its 120 s budget and 200 used 94 s of it. The
+# full run is weights_torch/synth_game_card_fp32.log; whether the cut run
+# replays its first lines is printed. No PWC and no warp in
+# losses_from_flow, so no kernel launch; the first sub-step's 8 losses card
+# against CPU within the recipe phase's 1e-4. The inspector at its defaults
+# (192x384, batch 16, the flagship's PWC at r=2) on the flagship and on the
+# port's own detector, card against CPU: fp32 masks on the two differ by up
+# to 3.37e-5 on real frames (PERF.md), so a pixel within that of 0.5 may
+# flip; a flip moves a sample's IoU, area and in-gt by about 1 / its mask's
+# pixels, its centroid by about the frame's size / its mask's pixels, and
+# may split or join a component. The limits: IoU, area and in-gt within
+# 1e-3, the centroid within 0.1 px, the components equal.
+GAMETOOLS_SYNTH = dict(cycles=100, batch=8, pretrain=200)
+SYNTH_CARD_LOG = "weights_torch/synth_game_card_fp32.log"
+GAMETOOLS_INSPECT_HW_BATCH = (192, 384, 16)
+INSPECT_TOL = 1e-3
+INSPECT_CENTROID_TOL = 0.1
+GAME_LOGS = ("weights_torch/game_card_fp32.log", "weights_torch/game_card_fp32_own_pwc.log",
+             "experiments/game_state_sq96/log.txt", "experiments/game_state_v2/log.txt",
+             "experiments/game_state_v2lr/log.txt", "experiments/game_state_v4/log.txt")
+
+
+def gametools_synth(tmp: str) -> dict:
+    """The synthetic game through its CLI's `main` at the tool's defaults:
+    its console lines, s per cycle, the final IoU, launches (none); the
+    first sub-step card against CPU; `game_stats` on its log."""
+    from unsupervised_detection_tpu_torch.recipe import game_stats, synth
+
+    g = GAMETOOLS_SYNTH
+    argv = [str(g["cycles"]), str(g["batch"]), str(g["pretrain"])]
+    lines = []
+    probe = SubStepProbe()
+    reset_counts()
+    try:
+        rec = synth.main(argv, log=lines.append)
+        torch.cuda.synchronize()
+    finally:
+        probe.restore()
+    counts = launch_counts()
+    for line in lines:
+        log(f"gametools: synth: {line}")
+    first = probe.first
+    rel = first_sub_step_rel(first, synth.make_game(synth.SynthArgs(*map(int, argv), "cpu")))
+    s_per_cycle = rec["seconds"]["cycles"] / g["cycles"]
+    final = rec["hist"][-1][1]
+    log(f"gametools: synth {g['cycles']} cycles at batch {g['batch']} after {g['pretrain']} "
+        f"warm-start steps: {s_per_cycle:.4f} s per cycle (4 sub-steps, host clock, "
+        f"validations included), {rec['seconds']['pretrain'] / g['pretrain'] * 1e3:.3f} ms per "
+        f"warm-start step; final IoU {final:.4f}; launches {json.dumps(counts)} (expected none: "
+        f"no PWC, no warp); first sub-step ({first['player']}) card vs CPU losses relative "
+        f"{json.dumps(rel)} (tol {RECIPE_LOSS_RTOL}) [{card_line()}]")
+    path = os.path.join(tmp, "synth.log")
+    with open(path, "w") as fh:
+        fh.write("\n".join(lines) + "\n")
+    # the cut run against the committed full run's first lines, elapsed
+    # seconds aside: the same seeds and deterministic cuDNN replay it on the
+    # same software, but another card or cuDNN may pick other algorithms
+    root = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(root, SYNTH_CARD_LOG)) as fh:
+        full = [re.sub(r"  \(\d+s\)$", "", line.rstrip("\n")) for line in fh]
+    ours = [re.sub(r"  \(\d+s\)$", "", line) for line in lines[:-1]]
+    log(f"gametools: synth: the first {len(ours)} lines replay {SYNTH_CARD_LOG}'s: "
+        f"{ours == full[:len(ours)]}")
+    for line in game_stats.main([path], log=[].append):
+        log(f"gametools: game_stats synth: {line}")
+    misses = []
+    if any(counts.values()):
+        misses.append(f"launches {counts}")
+    if not all(r <= RECIPE_LOSS_RTOL for r in rel.values()):
+        misses.append(f"first sub-step card vs CPU {rel}")
+    if not (math.isfinite(final) and len(rec["hist"]) == g["cycles"] // 25 + 2):
+        misses.append(f"validations {rec['hist'][-3:]}")
+    if misses:
+        raise AssertionError("gametools synth: " + "; ".join(misses))
+    return {"launches": counts, "s_per_cycle": s_per_cycle, "final_iou": final,
+            "first_rel": rel}
+
+
+def inspect_diff(a: float, b: float) -> float:
+    """|a - b|; 0 where both are nan (an empty mask has no centroid)."""
+    if math.isnan(a) and math.isnan(b):
+        return 0.0
+    d = abs(a - b)
+    return math.inf if math.isnan(d) else d
+
+
+def gametools_inspect(report: dict) -> dict:
+    """The inspector on the flagship and on the port's own detector, card
+    against CPU within the limits above; launches per inspection (the
+    render's 1 warp, then the PWC forward's 5 cost-volume and 4 warp); the
+    kernels on the flagship's inspection's inputs."""
+    from unsupervised_detection_tpu_torch.e2e_jmean import CKPT_FILE
+    from unsupervised_detection_tpu_torch.recipe import game as game_mod
+    from unsupervised_detection_tpu_torch.recipe import inspect_mask
+
+    h, w, b = GAMETOOLS_INSPECT_HW_BATCH
+    own = os.path.join(os.path.dirname(CKPT_FILE), "game_card_fp32_best_gen.npz")
+    detectors = {"flagship": CKPT_FILE, "port's own (cycle 1850)": own}
+    zero = dict.fromkeys(launch_counts(), 0)
+    out, misses = {}, []
+    for name, game_ckpt in detectors.items():
+        lines = []
+        timer = StageTimer()
+        timer.wrap(game_mod, "render_game")
+        reset_counts()
+        t0 = time.perf_counter()
+        try:
+            card = inspect_mask.inspect(game_ckpt, CKPT_FILE, h, w, b, "cuda", log=lines.append)
+            torch.cuda.synchronize()
+        finally:
+            timer.restore()
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        render = timer.launches["render_game"]
+        pwc = {k: v - render[k] for k, v in counts.items()}
+        cpu = inspect_mask.inspect(game_ckpt, CKPT_FILE, h, w, b, "cpu", log=[].append)
+        for line in lines:
+            log(f"gametools: inspect {name}: {line}")
+        diffs = {k: max(inspect_diff(g[k], c[k]) for g, c in zip(card["rows"], cpu["rows"]))
+                 for k in ("iou", "area", "in_gt", "dist")}
+        ncomp_equal = [g["ncomp"] for g in card["rows"]] == [c["ncomp"] for c in cpu["rows"]]
+        mask_err = float((card["mask"].cpu() - cpu["mask"]).abs().max())
+        log(f"gametools: inspect {name}: card vs CPU max abs diff {json.dumps(diffs)} (tol "
+            f"{INSPECT_TOL}, centroid {INSPECT_CENTROID_TOL} px), components equal "
+            f"{ncomp_equal}, raw masks max abs err {mask_err:.3g}; launches {json.dumps(counts)}: "
+            f"render {json.dumps(render)}, PWC forward {json.dumps(pwc)}; {wall:.2f} s per "
+            f"inspection (host clock, loading included) [{card_line()}]")
+        if not (all(diffs[k] <= INSPECT_TOL for k in ("iou", "area", "in_gt"))
+                and diffs["dist"] <= INSPECT_CENTROID_TOL and ncomp_equal):
+            misses.append(f"{name} card vs CPU {diffs}, components equal {ncomp_equal}")
+        if render != {**zero, "warp": 1} or pwc != {**zero, "cost_volume": 5, "warp": 4}:
+            misses.append(f"{name} launches: render {render}, PWC {pwc}")
+        out[name] = {"rows": card["rows"], "mean_iou": card["mean_iou"], "launches": counts,
+                     "seconds": wall, "diffs": diffs}
+    for k, err in check_step_kernels(
+            lambda: inspect_mask.inspect(CKPT_FILE, CKPT_FILE, h, w, b, "cuda", log=[].append),
+            "gametools inspect inputs").items():
+        report[k]["max_abs_err"] = max(report[k]["max_abs_err"], err)
+    if misses:
+        raise AssertionError("gametools inspect: " + "; ".join(misses))
+    return out
+
+
+def gametools_stats() -> None:
+    """`game_stats` on the port's two game logs and the JAX arms' four."""
+    from unsupervised_detection_tpu_torch.recipe import game_stats
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    for rel in GAME_LOGS:
+        for line in game_stats.main([os.path.join(root, rel)], log=[].append):
+            log(f"gametools: game_stats {rel}: {line}")
+
+
+def phase_gametools(report: dict) -> None:
+    """The game's instruments on the card: the synthetic game, the mask
+    inspector on two detectors, the game-log summary."""
+    import tempfile
+
+    t = {}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        synth_out = gametools_synth(tmp)
+    t["synth"] = time.perf_counter() - t0
+    inspected = gametools_inspect(report)
+    t["inspect"] = time.perf_counter() - t0 - sum(t.values())
+    gametools_stats()
+    t["stats"] = time.perf_counter() - t0 - sum(t.values())
+    total = dict(synth_out["launches"])
+    for row in inspected.values():
+        for k, v in row["launches"].items():
+            total[k] += v
+    report["launches_gametools"] = total
+    log(f"gametools: launches over the phase's card runs {json.dumps(total)}; seconds "
         f"{json.dumps(t)}")
 
 
@@ -3530,6 +3732,8 @@ def main() -> int:
             phase_jmean(report)
         elif phase == "recipe":
             phase_recipe(report)
+        elif phase == "gametools":
+            phase_gametools(report)
         elif phase == "train":
             phase_train(report)
         elif phase == "pretrain":
@@ -3557,6 +3761,7 @@ def main() -> int:
             "launches_tf1": report["launches_tf1"].get(name, 0),
             "launches_jmean": report["launches_jmean"][name],
             "launches_recipe": report["launches_recipe"][name],
+            "launches_gametools": report["launches_gametools"][name],
             "launches_train": 0 if backward else report["launches_train"][name],
             "launches_pretrain": report["launches_pretrain"][name],
             "launches_mesh": report["launches_mesh"][name],

@@ -1,6 +1,6 @@
 """The PyTorch port stands alone: it imports neither JAX, the JAX package
 nor TensorFlow, its entry points (the train and pretraining CLIs and the
-recipe's among them) default to the card and raise without one, and its
+recipe's and the game's instruments among them) default to the card and raise without one, and its
 kernel wrappers take the plain version only for CPU tensors."""
 
 import dataclasses
@@ -23,8 +23,11 @@ from unsupervised_detection_tpu_torch.eval import EnsembleEvaluator, Evaluator
 from unsupervised_detection_tpu_torch.postproc.propagate import pwc_flow_fn
 from unsupervised_detection_tpu_torch.recipe import flow_diag as recipe_flow_diag
 from unsupervised_detection_tpu_torch.recipe import game as recipe_game
+from unsupervised_detection_tpu_torch.recipe import game_stats as recipe_game_stats
+from unsupervised_detection_tpu_torch.recipe import inspect_mask as recipe_inspect_mask
 from unsupervised_detection_tpu_torch.recipe import pretrain_pwc as recipe_pretrain_pwc
 from unsupervised_detection_tpu_torch.recipe import scenes as recipe_scenes
+from unsupervised_detection_tpu_torch.recipe import synth as recipe_synth
 from unsupervised_detection_tpu_torch.ops.cost_volume import cost_volume
 from unsupervised_detection_tpu_torch.ops.warp import dense_image_warp
 from unsupervised_detection_tpu_torch.train.learner import AdversarialLearner
@@ -127,6 +130,18 @@ def test_entry_points_default_to_the_card(tmp_path):
     draws = recipe_scenes.game_draws(torch.Generator().manual_seed(0), 1, 64, 64, 16)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         recipe_scenes.render_game(draws, 64, 64, 16)
+    # the game's instruments: the synthetic game and the mask inspector
+    # before they build a net or read a checkpoint; the log summary touches
+    # no tensor and takes no device
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        recipe_synth.main(["1", "1", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        recipe_synth.make_game(recipe_synth.SynthArgs(1, 1, 1))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        recipe_inspect_mask.main([missing, missing, "64", "128", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        recipe_inspect_mask.inspect(missing, missing, 64, 128, 1)
+    assert not hasattr(recipe_game_stats, "resolve_device")
 
 
 def test_wrappers_take_plain_version_only_on_cpu():

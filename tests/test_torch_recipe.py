@@ -2,7 +2,8 @@
 JAX repo's experiment tools, on the CPU.
 
 * Scenes: the port's render of the draws that the tools' `jax.random` key
-  splits make (replayed here by `jax_game_draws` / `jax_v2_draws`) against
+  splits make (replayed by torch_parity's `jax_game_draws` and here by
+  `jax_v2_draws`) against
   `exp_convergence_v2.make_batch_fn` and `exp_scenes.make_scenes_v2` on
   the same key, at 64x128, batch 2: images and flows within 1e-5, masks
   equal.
@@ -31,7 +32,8 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from torch_parity import REPO, torch_threads
+from torch_parity import (REPO, game_loss_scale, jax_box_draws, jax_game_draws,
+                          jax_game_steps, jax_initial_game_weights, torch_threads)
 from unsupervised_detection_tpu_torch import convert
 from unsupervised_detection_tpu_torch.recipe import flow_diag, game, pretrain_pwc, scenes
 from unsupervised_detection_tpu_torch.train.checkpoint import load_eval_checkpoint
@@ -63,26 +65,10 @@ GAME_LOSS_RTOL, GAME_PARAM_REL = 1e-5, 1e-5
 # gate and chip_smoke's mesh phase allow the same). At most this share of a
 # net's elements, each within 2 lr x the net's updates.
 GAME_FLOOR_SHARE = 1e-3
-RATE_TERMS = {"generator": 2, "red_rate": 1, "red_rate_compl": 1}
 
 
 def _t(x):
     return torch.from_numpy(np.array(x))
-
-
-def jax_game_draws(key, b, h, w, square):
-    """`scenes.game_draws` as exp_convergence_v2.make_batch_fn draws them
-    from `key` (its split into 8 and each call's shape and bounds)."""
-    ks = jax.random.split(key, 8)
-    u = jax.random.uniform
-    return {"bg8": _t(u(ks[0], (b, h // 8, w // 8, 3))),
-            "bg2": _t(u(ks[1], (b, h // 2, w // 2, 3))),
-            "tex": _t(u(ks[2], (b, h // 4, w // 4, 3))),
-            "offset": _t(u(ks[3], (b, 1, 1, 1), minval=-0.2, maxval=0.2)),
-            "y0": _t(jax.random.randint(ks[4], (b, 1, 1), 0, h - square)).long(),
-            "x0": _t(jax.random.randint(ks[5], (b, 1, 1), 0, w - square)).long(),
-            "co_bg": _t(u(ks[6], (b, 2, 3), minval=-1.0, maxval=1.0)),
-            "co_obj": _t(u(ks[7], (b, 2, 3), minval=-1.0, maxval=1.0))}
 
 
 def jax_v2_draws(key, b, h, w, max_objects=3, bright=0.05, deform_amp=0.0):
@@ -248,78 +234,11 @@ def _jax_objective():
     return obj, cfg
 
 
-def _jax_game_steps(obj, cfg, gen_vars, rec_params, batches, box_keys):
-    """The tool's pre_step, rec_step and gen_step (exp_convergence_v2.py
-    :192-245) from the JAX package's functions, through one jitted
-    gradient function; returns each step's losses and the final
-    parameters."""
-    from unsupervised_detection_tpu.ops.losses import charbonnier_loss
-    from unsupervised_detection_tpu.train.learner import _clip_or_noise
-    from unsupervised_detection_tpu.train.optim import adam_apply, adam_init
-    from unsupervised_detection_tpu.train.pretrain import random_box_masks
-
-    hp = (cfg.learning_rate, cfg.beta1, 0.999, cfg.adam_epsilon)
-    stats = gen_vars["batch_stats"]
-    # jitted as the tool's steps are (eagerly each leaf's ops compile alone)
-    adam_apply, adam_init = jax.jit(adam_apply), jax.jit(adam_init)
-    _clip_or_noise = jax.jit(_clip_or_noise, static_argnums=(2, 3, 4))
-
-    @jax.jit
-    def grads_of(gen_p, rec_p, image, flow, box_key, weights):
-        """The gradients of weights . (generator loss, recover loss,
-        inpainting loss) for both nets: with one-hot weights, one loss's
-        gradient of its own net, bit for bit (one backward to compile)."""
-        mask = random_box_masks(box_key, B, H, W)
-
-        def total(gp, rp):
-            out = obj.losses_from_flow(gp, stats, rp, image, flow)
-            pred = obj.recover.apply({"params": rp}, image, flow * (1 - mask), mask)
-            pre = jnp.sum(charbonnier_loss(flow, pred, jnp.ones_like(flow), cfg.cbn)) / (H * W * B)
-            tot = (weights[0] * out.losses["generator"] + weights[1] * out.losses["recover"]
-                   + weights[2] * pre)
-            return tot, (out.losses, pre)
-
-        return jax.grad(total, argnums=(0, 1), has_aux=True)(gen_p, rec_p)
-
-    gen_p, rec_p = gen_vars["params"], rec_params
-    rec_opt = adam_init(rec_p)
-    out = {"pre": [], "steps": []}
-    one_hot = jnp.eye(3, dtype=jnp.float32)
-    for (image, flow), key in zip(batches[:len(box_keys)], box_keys):
-        (_, g_pre), (_, pre_loss) = grads_of(gen_p, rec_p, image, flow, key, one_hot[2])
-        g_pre = _clip_or_noise(key, g_pre, cfg.gradient_clip, cfg.grad_noise_threshold, False)
-        rec_p, rec_opt = adam_apply(g_pre, rec_opt, rec_p, rec_opt.count + 1, *hp)
-        out["pre"].append(float(pre_loss))
-    gen_opt, rec_opt = adam_init(gen_p), adam_init(rec_p)
-    rng = jax.random.PRNGKey(1)
-    for sub, (image, flow) in enumerate(batches[len(box_keys):]):
-        rng, r_noise = jax.random.split(rng)
-        t = gen_opt.count + rec_opt.count + 1
-        if sub % 4 < cfg.iters_rec:
-            (_, g_rec), (losses, _) = grads_of(gen_p, rec_p, image, flow, box_keys[0], one_hot[1])
-            g = _clip_or_noise(r_noise, g_rec, cfg.gradient_clip, cfg.grad_noise_threshold, False)
-            rec_p, rec_opt = adam_apply(g, rec_opt, rec_p, t, hp[0] * jnp.float32(1.0), *hp[1:])
-        else:
-            (g_gen, _), (losses, _) = grads_of(gen_p, rec_p, image, flow, box_keys[0], one_hot[0])
-            avg = np.mean([np.abs(np.asarray(x)).mean() for x in jax.tree.leaves(g_gen)])
-            assert avg >= cfg.grad_noise_threshold   # the noise branch stays off
-            g = _clip_or_noise(r_noise, g_gen, cfg.gradient_clip, cfg.grad_noise_threshold, True)
-            gen_p, gen_opt = adam_apply(g, gen_opt, gen_p, t, hp[0] * jnp.float32(1.0), *hp[1:])
-        out["steps"].append({k: float(v) for k, v in losses.items()})
-    out["gen_params"], out["rec_params"] = gen_p, rec_p
-    return out
-
-
 def test_game_steps_match_jax():
     pre_steps, cycles = 3, 2
     # JAX's initial weights as the tool makes them
     obj, cfg = _jax_objective()
-    r_gen, r_rec, _ = jax.random.split(jax.random.PRNGKey(8964), 3)
-    # the weights do not depend on the input's size: a small one compiles faster
-    zeros = jnp.zeros((1, 16, 32, 3)), jnp.zeros((1, 16, 32, 2)), jnp.zeros((1, 16, 32, 1))
-    gen_vars, rec_vars = jax.jit(lambda: (obj.generator.init(r_gen, zeros[0], zeros[1]),
-                                          obj.recover.init(r_rec, *zeros)))()
-    rec_params = rec_vars["params"]
+    gen_vars, rec_params = jax_initial_game_weights(obj)
     # the tool's scene keys and box keys
     data_key, keys = jax.random.PRNGKey(1234), []
     for _ in range(pre_steps + 4 * cycles):
@@ -331,7 +250,7 @@ def test_game_steps_match_jax():
         box_keys.append(r)
     make = make_batch_fn(B, H, W, SQUARE)
     jax_batches = [make(k)[:2] for k in keys]
-    want = _jax_game_steps(obj, cfg, gen_vars, rec_params, jax_batches, box_keys)
+    want = jax_game_steps(obj, cfg, gen_vars, rec_params, jax_batches, box_keys)
 
     g = game.Game(game.GameArgs(batch=B, height=H, width=W, device="cpu"))
     g.state.generator.load_state_dict(
@@ -339,18 +258,15 @@ def test_game_steps_match_jax():
     g.state.recover.load_state_dict(convert.recover_state_dict(rec_params))
     batches = [g.inputs(jax_game_draws(k, B, H, W, SQUARE))[:2] for k in keys]
     for i, ((image, flow), key) in enumerate(zip(batches, box_keys)):
-        r_h, r_w, r_y, r_x = jax.random.split(key, 4)
-        box = {n: _t(jax.random.uniform(r, (B,))) for n, r in
-               (("h", r_h), ("w", r_w), ("y", r_y), ("x", r_x))}
-        loss = float(g.pre_step(image, flow, box))
+        loss = float(g.pre_step(image, flow, jax_box_draws(key, B)))
         np.testing.assert_allclose(loss, want["pre"][i], rtol=GAME_LOSS_RTOL)
     g.end_warm_start()
     for sub, (image, flow) in enumerate(batches[pre_steps:]):
         player = "recover" if sub % 4 < g.config.iters_rec else "generator"
         losses = g.sub_step(player, image, flow)
         for k, v in want["steps"][sub].items():
-            scale = RATE_TERMS[k] - v if k in RATE_TERMS else abs(v)
-            assert abs(float(losses[k]) - v) <= GAME_LOSS_RTOL * scale, (sub, k, float(losses[k]), v)
+            assert abs(float(losses[k]) - v) <= GAME_LOSS_RTOL * game_loss_scale(k, v), \
+                (sub, k, float(losses[k]), v)
     assert (g.state.gen_opt.count, g.state.rec_opt.count) == (3 * cycles, cycles)
     for net, tree, to_sd, updates in (
             (g.state.generator, want["gen_params"],
