@@ -32,8 +32,10 @@ Phases, in order, each printed with its wall seconds:
              192x384, PWC 6 levels r=4, generator cnum 32) with seeded random
              weights, batch 8, float32 (TF32 off) and bfloat16: launch counts
              per forward (5 cost volume, 4 warp), the float32 card mask
-             against the same forward on the CPU for one frame pair, and
-             frames/s from CUDA events;
+             against the same forward on the CPU for one frame pair,
+             frames/s from CUDA events, and the forward's time under
+             cuDNN's deterministic algorithms against the default, in
+             turns, per dtype;
 * eval    -- the evaluation entry point, `evaluate_dataset`, at full width
              with PWC r=2 (the flagship checkpoint's range) and seeded random
              weights, batch 8, fed through its batch-iterable seam with
@@ -104,7 +106,15 @@ Phases, in order, each printed with its wall seconds:
              IoU and MAE, each with a control the limits must flag (the
              central crop skipped; every member at crop 1.0); each kernel
              against its plain version on one raw batch's inputs in both
-             dtypes; each stage's seconds and seconds per frame;
+             dtypes; each stage's seconds and seconds per frame; the post
+             stages against the JAX chain's run with the same PWC backend
+             on a CPU (weights_torch/jmean_pwc_backend_jax_cpu.md);
+             `scan_propagate` on the first sequence's soft-score masks and
+             PWC flows (T = 24) at 192x384 and 480x854: card against CPU,
+             against the host loop on 1/32-px flows, 2(T-1) warp launches,
+             ms per call and the warp's device us per launch at C = 1;
+             `trace` of one flagship forward, whose file names the cost
+             volume's and the warp's kernels, and `sync`;
 * recipe  -- the recipe that made the flagship (`recipe/`) at full size with
              the flagship's PWC (r=2), float32 with TF32 off and bfloat16:
              the three scene generators (the game's at 192x384 batch 16,
@@ -138,7 +148,14 @@ Phases, in order, each printed with its wall seconds:
              components equal), 1 warp launch in the render and 5
              cost-volume and 4 warp in the PWC forward per inspection, s per
              inspection, the kernels on its inputs; `game_stats` on the
-             port's two game logs and the JAX arms' four;
+             port's two game logs and the JAX arms' four; the layer
+             tapes: every layer of the inspector's flagship forward
+             (pyramid, cost volumes, estimators, context nets, warps,
+             upsamplings, resize_to_working, the flow's standardization,
+             the generator's layers) card against CPU in float32, with
+             and without cuDNN's deterministic algorithms, the first layer
+             past LAYER_TOL and its float64 arbiter, and one run on 8
+             pairs of the J-mean chain's JPEG video;
 * train   -- the two-player training game at full width (reader 384x640,
              working 192x384, PWC 6 levels r=2, generator cnum 32, recover
              f=0.25) with seeded random weights: one `generator_step` and one
@@ -147,7 +164,11 @@ Phases, in order, each printed with its wall seconds:
              losses, the stepped net's gradients and, where those fix them,
              its deltas within the stated limits, with the share of elements
              whose deltas are held; the other net and its Adam count
-             unchanged, the shared Adam step advanced); 2 cycles (8
+             unchanged, the shared Adam step advanced); one generator_step
+             and one recover_step at batch 16 in bfloat16 against float32
+             from the same weights and draws (the losses and the
+             gradient's relative L2 error), and the next draw in both
+             dtypes (the control, printed); 2 cycles (8
              sub-steps) at batch 16 in float32 and bfloat16 with 5
              cost-volume, 4 warp and 0 tile-copy launches per sub-step,
              finite losses, ms per generator and per recover step (CUDA
@@ -165,7 +186,8 @@ Phases, in order, each printed with its wall seconds:
              from CUDA events, samples/s, launches: 5 cost volume, 5 of its
              backward, 5 warp (4 in PWC, 1 in the synthesizer) and 4 of its
              backward per step, finite weights); the first step's loss and
-             EPE, bfloat16 against float32; one profiled step (busy share,
+             EPE, bfloat16 against float32, and bfloat16 on another scene
+             as the control that must break that limit; one profiled step (busy share,
              top kernels) and one step whose forward and backward kernel
              calls are held to their plain versions; one step's loss, EPE
              and gradients at batch 2, float32, card against CPU; 40 steps
@@ -370,6 +392,33 @@ PRETRAIN_LOSS_RTOL, PRETRAIN_GRAD_REL = 1e-4, 1e-4
 # over ~4M per-pixel errors dominated by the targets, so roundings average
 # out; fixed before the first call at 3e-2 relative.
 PRETRAIN_BF16_RTOL = 3e-2
+# Its control: the bfloat16 first step on another scene (seed 22, the
+# next after the parity's 21) against float32's on seed 20 must break it.
+# An untrained net's flow is near 0, so its EPE is near the scene's mean
+# |flow|: 4.76 px on seed 20 and 5.52 on seed 22 (the scenes' flows made
+# on the CPU), 16% apart.
+PRETRAIN_CONTROL_SEED = 22
+# bfloat16 against float32 in training, one generator_step and one
+# recover_step at the train phase's sizes (batch 16) from the same weights
+# and augmentation draws, on moving-square frames (`mesh_frames`), where
+# a crop moves the square; fixed before the first card run:
+# * the 8 losses within 3e-2 relative, the pretraining's limit: the
+#   losses are means over ~1e6 per-pixel terms, and the same steps in
+#   bfloat16 on the CPU (reader 256x384, batch 8) read 0.9% at most
+#   (red_rate_compl);
+# * the stepped net's applied gradient within 1.5e-2 relative L2 error of
+#   the flattened whole: bfloat16's roundings of the weights and of every
+#   activation perturb it by a fixed share that no batch averages away
+#   (the CPU run: 8.8e-3 generator, 4.5e-3 recover).
+# Control: the same bfloat16 steps on the next draw of the augmentation
+# generator were to break at least one of the limits. On the CPU run the
+# control read 2.0% on the losses and 2.5e-2 / 7.4e-3 on the gradients:
+# only the generator step's gradient separated a changed draw from
+# bfloat16's own error, by ~3x, and the gradient limit sat between them.
+# On the H100 it did not (PERF.md section 6): at batch 16 the next
+# draw (crop 0.9-1 and flips) moves the steps by less than bfloat16's
+# roundings, so the control is printed and not held.
+TRAIN_BF16_LOSS_RTOL, TRAIN_BF16_GRAD_REL = 3e-2, 1.5e-2
 KERNEL_SOURCES = {
     "cost_volume": ("unsupervised_detection_tpu_torch/csrc/cost_volume.cu",
                     "unsupervised_detection_tpu/ops/pallas/cost_volume_kernel.py:57"),
@@ -843,6 +892,32 @@ def forward_with_sharp_head(cfg: Config, device: str):
     return fwd, obj
 
 
+def deterministic_cost(forwards: dict, img1, img2, iters: int, repeats: int) -> dict:
+    """ms per forward under cuDNN's deterministic algorithms against the
+    default, per dtype, in turns (default, deterministic, default,
+    deterministic; the first default reading is phase path's own), with
+    the launch counts of every timed window held."""
+    from unsupervised_detection_tpu_torch.recipe.game import deterministic_cudnn
+
+    timed = iters * repeats + 1
+    out = {}
+    for dn, (fwd, ms_default) in forwards.items():
+        ms = {"default": [ms_default], "deterministic": []}
+        for mode in ("deterministic", "default", "deterministic"):
+            scope = deterministic_cudnn() if mode == "deterministic" else contextlib.nullcontext()
+            reset_counts()
+            with scope:
+                ms[mode].append(time_cuda(fwd, img1, img2, iters=iters, warmup=1,
+                                          repeats=repeats))
+            expect_counts(f"timed forwards {dn} {mode} cuDNN", forwards=timed)
+        mean = {k: sum(v) / len(v) for k, v in ms.items()}
+        out[dn] = {"ms": ms, "cost": mean["deterministic"] / mean["default"] - 1.0}
+        log(f"path: forward {dn} batch {BATCH} cuDNN default {ms['default']} ms, deterministic "
+            f"{ms['deterministic']} ms (CUDA events, in turns): deterministic costs "
+            f"{100.0 * out[dn]['cost']:+.2f}% [{card_line()}]")
+    return out
+
+
 def phase_path(report: dict):
     """Returns the float32 and bfloat16 forwards and their input frames."""
     cfg = Config(batch_size=BATCH, reader_height=384, reader_width=640, img_height=192,
@@ -911,6 +986,8 @@ def phase_path(report: dict):
         log(f"path: forward {dn} batch {BATCH}: {ms:.3f} ms, {BATCH * 1e3 / ms:.2f} frames/s "
             f"(CUDA events, median of {repeats} windows of {iters})")
     report["fps"] = {"float32": BATCH * 1e3 / ms32, "bfloat16": BATCH * 1e3 / ms16}
+    report["deterministic_cudnn"] = deterministic_cost(
+        {"float32": (fwd32, ms32), "bfloat16": (fwd16, ms16)}, img1, img2, iters, repeats)
     return {"float32": fwd32, "bfloat16": fwd16}, (img1, img2)
 
 
@@ -1445,11 +1522,78 @@ def train_cli(report: dict) -> None:
     report["train_cli"] = {"saves": saved, "dataset_iou": res["dataset_iou"]}
 
 
+def train_bf16_steps(cfg: Config, weights: dict, img1, img2, device: str = "cuda") -> dict:
+    """One generator_step and one recover_step per run, each from the
+    weights in `weights` and a fresh Adam state: float32 and bfloat16 on
+    the first augmentation draw of a generator seeded Config.seed, and
+    bfloat16 (the control) and float32 (what the draw alone moves) on its
+    next draw. Returns {run: {step: (the 8 losses, the applied gradient
+    flattened, float32 on the CPU)}}."""
+    from unsupervised_detection_tpu_torch.ops.augment import sample_augment
+
+    b, h, w, _ = img1.shape
+    rng = torch.Generator().manual_seed(cfg.seed)
+    draws = [sample_augment(rng, b, h, w, cfg.train_crop) for _ in range(2)]
+    out = {}
+    for run, dn, draw in (("float32", "float32", 0), ("bfloat16", "bfloat16", 0),
+                          ("control", "bfloat16", 1), ("float32 next draw", "float32", 1)):
+        learner, _ = make_learner(cfg.replace(compute_dtype=dn), device, weights)
+        nets = (learner.objective.generator, learner.objective.recover)
+        saved = [{k: v.clone() for k, v in net.state_dict().items()} for net in nets]
+        out[run] = {}
+        for name in ("generator_step", "recover_step"):
+            for net, sd in zip(nets, saved):
+                net.load_state_dict(sd)
+            state, losses, grads = getattr(learner, name)(learner.init_state(), img1, img2,
+                                                          draws=draws[draw])
+            out[run][name] = ({k: float(v) for k, v in losses.items()},
+                              torch.cat([g.detach().float().flatten() for g in grads]).cpu())
+    return out
+
+
+def hold_train_bf16(runs: dict) -> dict:
+    """train_bf16_steps' bfloat16 run and its control against float32:
+    each loss's relative difference and the gradient's relative L2 error,
+    per step; raises unless the bfloat16 run holds both limits. Whether
+    the control breaks one is printed: on the H100 it does not (PERF.md
+    section 6), because the next draw moves these steps by less than
+    bfloat16's roundings do."""
+    out = {}
+    for run in ("bfloat16", "control", "float32 next draw"):
+        out[run] = {}
+        for name, (losses, grad) in runs[run].items():
+            want, g32 = runs["float32"][name]
+            rel = {k: abs(losses[k] - want[k]) / max(abs(want[k]), 1e-30) for k in LOSS_KEYS}
+            out[run][name] = {"loss_rel": max(rel.values()), "loss_rel_of": max(rel, key=rel.get),
+                              "grad_rel_l2": float((grad - g32).norm() / g32.norm())}
+    for run, steps in out.items():
+        log(f"train: against float32 at batch {TRAIN_BATCH}, {run}: {json.dumps(steps)} (tol "
+            f"losses {TRAIN_BF16_LOSS_RTOL} relative, gradient {TRAIN_BF16_GRAD_REL} relative "
+            f"L2) [{card_line()}]")
+
+    def holds(step):
+        return (step["loss_rel"] <= TRAIN_BF16_LOSS_RTOL
+                and step["grad_rel_l2"] <= TRAIN_BF16_GRAD_REL)
+
+    misses = [f"bfloat16 {name} {step}" for name, step in out["bfloat16"].items()
+              if not holds(step)]
+    out["control_breaks"] = not all(holds(step) for step in out["control"].values())
+    log(f"train: the control breaks a limit: {out['control_breaks']} (reported, not held)")
+    if misses:
+        raise AssertionError("train: bfloat16 against float32: " + "; ".join(misses))
+    return out
+
+
 def phase_train(report: dict) -> None:
     weights = train_weights()
     t0 = time.perf_counter()
     report["train_parity"] = train_parity(weights)
     log(f"train: parity {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    cfg = Config(batch_size=TRAIN_BATCH, **TRAIN_SIZES)
+    report["train_bf16"] = hold_train_bf16(
+        train_bf16_steps(cfg, weights, *mesh_frames(TRAIN_BATCH, "cuda")))
+    log(f"train: bf16 against float32 {time.perf_counter() - t0:.1f} s")
     report["train"] = train_throughput(weights, report)
     train_cli(report)
 
@@ -1542,6 +1686,10 @@ def pretrain_profile_and_check(cfg: Config, weights: dict, dn: str, report: dict
     batch = scene(PRETRAIN_BATCH, seed=20)
     loss, epe, _, _ = trainer.loss_and_grads(*batch)
     first = {"loss": float(loss), "epe": float(epe)}
+    control = None
+    if dn == "bfloat16":
+        loss, epe, _, _ = trainer.loss_and_grads(*scene(PRETRAIN_BATCH, PRETRAIN_CONTROL_SEED))
+        control = {"loss": float(loss), "epe": float(epe)}
     trainer.step(*batch)                               # warm
     torch.cuda.synchronize()
     wall_us, busy_us, per_kernel = profile_window(lambda: trainer.step(*batch), 1)
@@ -1557,7 +1705,8 @@ def pretrain_profile_and_check(cfg: Config, weights: dict, dn: str, report: dict
     for name, err in check_step_kernels(lambda: trainer.step(*batch), f"pretrain step {dn}",
                                         backward=True).items():
         report[name]["max_abs_err"] = max(report[name]["max_abs_err"], err)
-    return {"first": first, "busy_share": busy_us / wall_us, "kernel_device_ms": kernel_ms}
+    return {"first": first, "control": control, "busy_share": busy_us / wall_us,
+            "kernel_device_ms": kernel_ms}
 
 
 def pretrain_parity(cfg: Config, weights: dict) -> dict:
@@ -1750,6 +1899,13 @@ def phase_pretrain(report: dict) -> None:
         f"relative {json.dumps(rel)} (tol {PRETRAIN_BF16_RTOL})")
     if not all(v <= PRETRAIN_BF16_RTOL for v in rel.values()):
         raise AssertionError(f"pretrain: bfloat16 first step differs from float32: {rel}")
+    control = out["bfloat16"]["control"]
+    rel = {k: abs(control[k] - f32[k]) / abs(f32[k]) for k in ("loss", "epe")}
+    log(f"pretrain: control, the bfloat16 first step on scene seed {PRETRAIN_CONTROL_SEED}: "
+        f"{json.dumps(control)}, relative to float32's on seed 20 {json.dumps(rel)} (must "
+        f"exceed {PRETRAIN_BF16_RTOL})")
+    if all(v <= PRETRAIN_BF16_RTOL for v in rel.values()):
+        raise AssertionError(f"pretrain: the bfloat16 limit does not flag the control: {rel}")
     t0 = time.perf_counter()
     out["parity"] = pretrain_parity(cfg, weights)
     log(f"pretrain: parity {time.perf_counter() - t0:.1f} s")
@@ -2476,6 +2632,30 @@ JMEAN_SEQUENCE_IOU = {"pan_a": 0.6537, "zoom_b": 0.7459, "drift_c": 0.7278,
                       "shear_d": 0.7367, "wobble_e": 0.6276}
 JMEAN_SEQUENCE_TOL = 0.01
 JMEAN_BF16_IOU_TOL = JMEAN_BF16_MAE_TOL = 1e-3
+# The post stages against the JAX chain with the same PWC backend
+# (weights_torch/jmean_pwc_backend_jax_cpu.md; the report above holds
+# pyflow's). The port's chain on the same CPU reads within 3e-5 of it at
+# every stage (soft score equal, propagated_f 3.7e-6, CRF 8.7e-6 and
+# 8.2e-8, per sequence at most 2.9e-5; PERF.md section 6), so the
+# limits are what the card changes, fixed before the first card run: the
+# card's cv2 encodes the rendered JPEGs, which moves the raw dataset IoU
+# within 0.005 and each sequence's within 0.01 (the limits above), and
+# the soft score and the CRFs average the same frames: 0.005 on the
+# dataset, 0.01 per sequence; propagated_f also carries the card's
+# fixed-point remap (1.18e-2 in the running averages' values on PWC
+# flows), which moves the pixels near the 0.1 threshold: 0.01.
+JMEAN_PWC_JAX = {"soft_score": 0.6557555357609366, "propagated_f": 0.41774543542602866,
+                 "post_crf": 0.692948970446984, "post_crf_original": 0.5430558410783609}
+JMEAN_PWC_JAX_SEQUENCE = {
+    "soft_score": {"pan_a": 0.6385495386438483, "zoom_b": 0.6915392575813871,
+                   "drift_c": 0.6018204622966665, "shear_d": 0.6115001026481935,
+                   "wobble_e": 0.7353683176345873},
+    "post_crf": {"pan_a": 0.7302964777054376, "zoom_b": 0.6602165386931313,
+                 "drift_c": 0.7516340708988549, "shear_d": 0.725306782291763,
+                 "wobble_e": 0.5972909909937993}}
+JMEAN_PWC_TOL = {"soft_score": 0.005, "propagated_f": 0.01, "post_crf": 0.005,
+                 "post_crf_original": 0.005}
+JMEAN_PWC_SEQUENCE_TOL = 0.01
 
 
 def jmean_bf16(what: str, fp32: dict, bf16: dict, control: dict, misses: list) -> None:
@@ -2532,6 +2712,146 @@ def jmean_extra_runs(out: str, ckpt: str, res: dict, misses: list) -> None:
         first = next(iter(build_test_pipeline(cfg)))
         check_step_kernels(lambda: ev.infer_metrics(*ev.device_batch(first)),
                            f"jmean raw batch {cfg.batch_size}")
+
+
+# scan_propagate, the propagation recurrence on the card (postproc/
+# propagate.py): the chain's soft-score masks of its first sequence (T = 24)
+# with the PWC backend's flows between its frames, at the chain's 192x384
+# and resized (cv2, bilinear) to DAVIS' 480x854. Held: the card against
+# the same call on CPU tensors (warp_plain) within 1e-6 (the kernel repeats
+# warp_plain's arithmetic and max is exact: bit-equal expected); against
+# the host loop `propagate_masks` within JAX's own 2e-5
+# (tests/test_postproc.py) on the flows rounded to 1/32 px (the card's cv2
+# remaps in 1/32-px fixed point, exact on them), zero on a 4-px border and
+# wherever a sample would leave the frame (the warp clamps there, cv2
+# fills zeros); 2(T-1) warp launches per call, no other kernel.
+SCAN_SIZES = ((192, 384), (480, 854))
+SCAN_TOL, SCAN_HOST_TOL = 1e-6, 2e-5
+
+
+def scan_flows(images, flow_fn):
+    """(T-1, H, W, 2) float32 (u, v) flows from frame t's grid into frame
+    t-1, the host loop's pairs."""
+    import numpy as np
+
+    return np.stack([np.stack(flow_fn(images[t], images[t - 1]), axis=-1)
+                     for t in range(1, len(images))]).astype(np.float32)
+
+
+def host_safe_flows(flows):
+    """`flows` in multiples of 1/32 px, zero on a 4-px border and where the
+    sample would leave the frame."""
+    import numpy as np
+
+    q = np.round(flows * 32.0) / 32.0
+    _, h, w, _ = q.shape
+    x = np.arange(w)[None, None, :] + q[..., 0]
+    y = np.arange(h)[None, :, None] + q[..., 1]
+    inside = (x >= 0) & (x <= w - 1) & (y >= 0) & (y <= h - 1)
+    q[~inside] = 0.0
+    q[:, :4] = q[:, -4:] = 0.0
+    q[:, :, :4] = q[:, :, -4:] = 0.0
+    return q
+
+
+def jmean_scan(out: str, report: dict) -> dict:
+    """scan_propagate on the chain's masks and PWC flows at SCAN_SIZES:
+    card against CPU, against the host loop, launches; ms per call (CUDA
+    events) and the warp's device us per launch (torch.profiler)."""
+    import cv2
+    import numpy as np
+    import scipy.io as sio
+
+    from unsupervised_detection_tpu_torch import e2e_jmean
+    from unsupervised_detection_tpu_torch.postproc import propagate
+
+    seq = e2e_jmean.SEQS[0]
+    mats = [sio.loadmat(os.path.join(out, "soft", seq, f"result_{k}.mat"))
+            for k in range(1, e2e_jmean.FRAMES + 1)]
+    masks0 = [np.squeeze(m["pred_mask"]).astype(np.float32) for m in mats]
+    images0 = [np.squeeze(m["img1"]).astype(np.float64) / 255.0 for m in mats]
+    flow_fn = propagate.pwc_flow_fn(e2e_jmean.CKPT_FILE, search_range=e2e_jmean.SEARCH_RANGE,
+                                    device="cuda")
+    t = len(masks0)
+    rows, total = {}, dict.fromkeys(launch_counts(), 0)
+    for h, w in SCAN_SIZES:
+        masks = [cv2.resize(m, (w, h), interpolation=cv2.INTER_LINEAR) for m in masks0]
+        images = [cv2.resize(im, (w, h), interpolation=cv2.INTER_LINEAR) for im in images0]
+        flows = scan_flows(images, flow_fn)
+        m_cpu, f_cpu = torch.from_numpy(np.stack(masks)), torch.from_numpy(flows)
+        m_card, f_card = m_cpu.cuda(), f_cpu.cuda()
+        reset_counts()
+        got = propagate.scan_propagate(m_card, f_card)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        for k, n in counts.items():
+            total[k] += n
+        err = float((got.cpu() - propagate.scan_propagate(m_cpu, f_cpu)).abs().max())
+        safe = host_safe_flows(flows)
+        steps = iter(safe)
+        host = propagate.propagate_masks(masks, images, lambda a, b: tuple(
+            c.astype(np.float64) for c in np.moveaxis(next(steps), -1, 0)))
+        scan_safe = propagate.scan_propagate(m_card, torch.from_numpy(safe).cuda()).cpu()
+        host_err = float(np.abs(scan_safe.numpy() - np.stack(host)).max())
+        ms = time_cuda(propagate.scan_propagate, m_card, f_card, iters=5, warmup=1, repeats=3)
+        _, _, per_kernel = profile_window(lambda: propagate.scan_propagate(m_card, f_card), 1)
+        us, n = [sum(v[i] for k, v in per_kernel.items() if KERNEL_SYMBOLS["warp"] in k
+                     and "backward" not in k) for i in (0, 1)]
+        bound, _ = warp_bound(1, h, w, 1, torch.float32)
+        row = {"launches": counts, "card_vs_cpu": err, "vs_host": host_err, "ms_per_call": ms,
+               "warp_device_us_per_launch": us / max(n, 1), "warp_bound_us": bound * 1e3,
+               "warp_kernels_profiled": n, "flow_abs_max": float(np.abs(flows).max()),
+               "zeroed_share": float((safe == 0).all(-1).mean())}
+        log(f"jmean: scan_propagate {seq} T={t} at {h}x{w}: launches {json.dumps(counts)} "
+            f"(expected warp {2 * (t - 1)}, no other); card vs CPU max abs err {err} (tol "
+            f"{SCAN_TOL}); vs the host loop on 1/32-px flows (zero on {row['zeroed_share']:.4f} "
+            f"of the pixels) {host_err} (tol {SCAN_HOST_TOL}); {ms:.3f} ms per call (CUDA "
+            f"events), the warp {row['warp_device_us_per_launch']:.2f} us per launch on the "
+            f"card ({n} profiled) against its byte bound {row['warp_bound_us']:.3f} us "
+            f"[{card_line()}]")
+        want = {**dict.fromkeys(counts, 0), "warp": 2 * (t - 1)}
+        if counts != want or not err <= SCAN_TOL or not host_err <= SCAN_HOST_TOL:
+            raise AssertionError(f"jmean: scan_propagate at {h}x{w}: launches {counts}, "
+                                 f"card vs CPU {err}, vs host {host_err}")
+        rows[f"{h}x{w}"] = row
+    report["launches_scan"] = total
+    return rows
+
+
+def jmean_trace(out: str, ckpt: str) -> dict:
+    """utils/profiling's `trace` around one flagship forward on the chain's
+    first raw batch (infer_metrics, float32), `sync` on its metrics; the
+    trace file's kernel names must include the cost volume's and the
+    warp's."""
+    import glob
+    import tempfile
+
+    from unsupervised_detection_tpu_torch import e2e_jmean, parse_flags
+    from unsupervised_detection_tpu_torch.eval.evaluator import build_test_pipeline
+    from unsupervised_detection_tpu_torch.train.checkpoint import load_eval_checkpoint
+    from unsupervised_detection_tpu_torch.utils.profiling import sync, trace
+
+    cfg = parse_flags(e2e_jmean.common_flags(out, ckpt, "float32"))
+    ev = Evaluator(cfg, device="cuda")
+    ev.load_state_dicts(*load_eval_checkpoint(ckpt, cfg.pwc_search_range))
+    batch = ev.device_batch(next(iter(build_test_pipeline(cfg))))
+    ev.infer_metrics(*batch)
+    with tempfile.TemporaryDirectory() as logdir:
+        with trace(logdir):
+            metrics = ev.infer_metrics(*batch)
+            sync(metrics)
+        files = glob.glob(os.path.join(logdir, "*.pt.trace.json"))
+        with open(files[0]) as fh:
+            events = json.load(fh)["traceEvents"]
+        size = os.path.getsize(files[0])
+    names = {e.get("name", "") for e in events if e.get("cat") == "kernel"}
+    found = {k: sorted(n for n in names if KERNEL_SYMBOLS[k] in n and "backward" not in n)
+             for k in ("cost_volume", "warp")}
+    log(f"jmean: trace of one flagship forward: {len(files)} file(s), {size} bytes, "
+        f"{len(names)} kernel names; the port's kernels {json.dumps(found)}")
+    if len(files) != 1 or not all(found.values()):
+        raise AssertionError(f"jmean: trace: files {files}, kernels {found}")
+    return {"bytes": size, "kernels": found}
 
 
 def phase_jmean(report: dict) -> None:
@@ -2596,8 +2916,24 @@ def phase_jmean(report: dict) -> None:
                 misses.append(f"raw_fp32 {seq} {per_seq.get(seq)}, report {want}")
         for key in ("soft_score", "post_crf"):
             log(f"jmean: {key} per sequence {json.dumps(res['per_seq'][key])} (reported)")
+        for key, want in JMEAN_PWC_JAX.items():
+            got = res[key]
+            log(f"jmean: {key} {got} against the JAX chain's PWC backend {want}: "
+                f"{got - want:+.3g} (tol {JMEAN_PWC_TOL[key]})")
+            if not abs(got - want) <= JMEAN_PWC_TOL[key]:
+                misses.append(f"{key} {got}, JAX PWC backend {want} +- {JMEAN_PWC_TOL[key]}")
+        for key, seqs in JMEAN_PWC_JAX_SEQUENCE.items():
+            got = res["per_seq"][key]
+            diffs = {seq: got.get(seq, math.inf) - want for seq, want in seqs.items()}
+            log(f"jmean: {key} per sequence against the JAX chain's PWC backend "
+                f"{json.dumps(diffs)} (tol {JMEAN_PWC_SEQUENCE_TOL})")
+            if set(got) != set(seqs) or not all(abs(d) <= JMEAN_PWC_SEQUENCE_TOL
+                                                 for d in diffs.values()):
+                misses.append(f"{key} per sequence {got}, JAX PWC backend {seqs}")
 
         jmean_extra_runs(out, ckpt, res, misses)
+        report["jmean_scan"] = jmean_scan(out, report)
+        report["jmean_trace"] = jmean_trace(out, ckpt)
 
     sec, stage_s = timer.seconds, res["seconds"]
     seconds = {"render": sec["render_dataset"], "raw_fp32": stage_s["raw_fp32"],
@@ -3178,6 +3514,282 @@ def gametools_inspect(report: dict) -> dict:
     return out
 
 
+# Where the card's float32 mask parts from the CPU's on the game's scenes:
+# the inspector's inputs (the flagship at r=2, 192x384, batch 16, the
+# validation draws), every layer of the forward recorded in the order it
+# finishes on both sides (each side fed its own previous outputs); a layer
+# parts where its output differs by more than LAYER_TOL of its largest
+# |value|. The card runs with and without cuDNN's deterministic
+# algorithms. A float64 run of the first such layer on the CPU, from the
+# card's own input to it, against that layer in float32 on the card and on
+# the CPU from the same input, says which side is off. For contrast, one
+# card run on 8 frame pairs of the J-mean chain's JPEG video (pan_a) with
+# the same nets.
+LAYER_TOL = 1e-5
+ARBITER_SAMPLES = 4      # the float64 arbiter's share of the batch
+VIDEO_PAIRS = 8
+CONV_TYPES = ("PWCConv", "GenConv", "GenDeconv", "ConvTranspose2D", "FlowEstimator",
+              "ContextNet", "FeaturePyramid", "GeneratorNet")
+
+
+def _tensors(x) -> list:
+    """The tensors of x, a tensor or nested lists and tuples of them."""
+    if torch.is_tensor(x):
+        return [x]
+    if isinstance(x, (list, tuple)):
+        return [t for item in x for t in _tensors(item)]
+    return []
+
+
+def _to_cpu(x):
+    if torch.is_tensor(x):
+        return x.detach().cpu()
+    if isinstance(x, (list, tuple)):
+        return type(x)(_to_cpu(item) for item in x)
+    return x
+
+
+def _cast(x, device, dtype):
+    """Floating tensors in x (nested lists and tuples) on `device` in `dtype`."""
+    if torch.is_tensor(x):
+        return x.to(device, dtype if x.is_floating_point() else x.dtype)
+    if isinstance(x, (list, tuple)):
+        return type(x)(_cast(item, device, dtype) for item in x)
+    return x
+
+
+class LayerTape:
+    """Records, in the order they finish, every module of the game's PWC
+    and generator, PWC's cost volume and warp calls (by level) and its
+    final upsample, the flow's `resize_to_working` and standardization:
+    {"name", "kind", "fn", "args", "out"}, the tensors on the CPU; the
+    inputs ("args") only of the records named in `keep_args`."""
+
+    def __init__(self, objective, keep_args=()):
+        from unsupervised_detection_tpu_torch.models import pwcnet
+        from unsupervised_detection_tpu_torch.train import objective as obj_mod
+
+        self.records: list = []
+        self.keep_args = set(keep_args)
+        self._undo: list = []
+        for prefix, net in (("pwc", objective.pwc), ("generator", objective.generator)):
+            for name, module in net.named_modules():
+                label = f"{prefix}.{name}" if name else prefix
+                handle = module.register_forward_hook(self._hook(label))
+                self._undo.append(handle.remove)
+        for target, attr, labels in (
+                (pwcnet, "cost_volume", [f"pwc.L{lvl}.cost_volume" for lvl in range(6, 1, -1)]),
+                (pwcnet, "dense_image_warp", [f"pwc.L{lvl}.warp" for lvl in range(5, 1, -1)]),
+                (pwcnet, "resize_bilinear", ["pwc.upsample"]),
+                (objective, "resize_to_working", ["resize_to_working"]),
+                (obj_mod, "standardize_flow", ["standardize_flow"])):
+            self._patch(target, attr, labels)
+
+    def _add(self, name, kind, fn, args, out):
+        self.records.append({"name": name, "kind": kind, "fn": fn,
+                             "args": _to_cpu(args) if name in self.keep_args else None,
+                             "out": [t.detach().cpu() for t in _tensors(out)]})
+
+    def _hook(self, label):
+        def hook(module, args, out):
+            self._add(label, type(module).__name__, module, args, out)
+        return hook
+
+    def _patch(self, target, attr, labels):
+        fn = getattr(target, attr)
+        own = attr in vars(target)
+        calls = iter(labels)
+
+        def recorded(*args):
+            out = fn(*args)
+            self._add(next(calls, attr), attr, fn, args, out)
+            return out
+
+        setattr(target, attr, recorded)
+        self._undo.append(lambda: setattr(target, attr, fn) if own else delattr(target, attr))
+
+    def close(self) -> list:
+        for undo in reversed(self._undo):
+            undo()
+        self._undo.clear()
+        return self.records
+
+
+def tape_forward(objective, image_fn, device: str, deterministic: bool = False,
+                 keep_args=()):
+    """(records, mask) of one float32 forward (TF32 off) of `objective`'s
+    PWC and generator on the frame pair `image_fn()` gives, on `device`;
+    cuDNN's deterministic algorithms within it where asked."""
+    from unsupervised_detection_tpu_torch.recipe.game import deterministic_cudnn
+
+    img1, img2 = (t.to(device) for t in image_fn())
+    scope = deterministic_cudnn() if deterministic else contextlib.nullcontext()
+    tape = LayerTape(objective, keep_args)
+    try:
+        with scope, torch.no_grad(), precision_scope(torch.float32):
+            flow = objective.compute_flow(img1, img2)
+            image, flow = objective.resize_to_working(img1, flow)
+            mask = objective.generate_mask(image, flow)
+        if device == "cuda":
+            torch.cuda.synchronize()
+    finally:
+        records = tape.close()
+    return records, mask.cpu()
+
+
+def compare_tapes(card: list, cpu: list) -> list:
+    """Per record: max abs difference of the outputs and that over the
+    CPU output's largest |value| (the largest over a record's tensors)."""
+    if [r["name"] for r in card] != [r["name"] for r in cpu]:
+        raise AssertionError("layer tapes: the card and the CPU ran other layers")
+    rows = []
+    for a, b in zip(card, cpu):
+        diff = rel = top = 0.0
+        for x, y in zip(a["out"], b["out"]):
+            d = float((x.float() - y.float()).abs().max()) if x.numel() else 0.0
+            t = float(y.float().abs().max()) if y.numel() else 0.0
+            diff, top = max(diff, d), max(top, t)
+            rel = max(rel, d / t if t > 0 else (0.0 if d == 0 else math.inf))
+        rows.append({"name": a["name"], "kind": a["kind"], "abs": diff, "rel": rel, "max": top})
+    return rows
+
+
+def arbiter(record: dict, device: str = "cuda") -> dict:
+    """The record's layer once more on its own (card) input, its first
+    ARBITER_SAMPLES samples: in float32 on `device` (the card) and on the
+    CPU and in float64 on the CPU; each float32 output's max abs
+    difference from the float64 one, and the kernels the card ran
+    (torch.profiler) where the layer is a convolution or a net."""
+    import copy
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def run(device, dtype):
+        fn = record["fn"]
+        if isinstance(fn, torch.nn.Module):
+            fn = copy.deepcopy(fn).to(device)
+            for m in fn.modules():          # a net's compute dtype (PWCNet, GeneratorNet)
+                if isinstance(getattr(m, "dtype", None), torch.dtype):
+                    m.dtype = dtype
+        with torch.no_grad(), precision_scope(torch.float32):
+            args = [a[:ARBITER_SAMPLES] if torch.is_tensor(a) else a for a in record["args"]]
+            return _tensors(fn(*_cast(args, device, dtype)))
+
+    # the resizes compute in float32 whatever the input: then the arbiter
+    # has no float64 value; the nets compute in float64 and round their
+    # output to float32 last (PWC's flow, the mask's softmax)
+    exact = record["kind"] not in ("resize_bilinear", "resize_to_working")
+    want = [t.double() for t in run("cpu", torch.float64)]
+    activity = ProfilerActivity.CUDA if device == "cuda" else ProfilerActivity.CPU
+    with profile(activities=[activity]) as prof:
+        card = [t.double().cpu() for t in run(device, torch.float32)]
+    kernels = sorted({e.name for e in prof.events() if e.device_type == DeviceType.CUDA})
+    cpu = [t.double() for t in run("cpu", torch.float32)]
+
+    def off(got):
+        return max(float((g - w).abs().max()) for g, w in zip(got, want))
+
+    e_card, e_cpu = off(card), off(cpu)
+    return {"card_vs_f64": e_card, "cpu_vs_f64": e_cpu, "f64_max": max(
+                float(w.abs().max()) for w in want), "float64": exact,
+            "off": "card" if e_card > e_cpu else "cpu" if e_cpu > e_card else "neither",
+            "card_kernels": kernels if record["kind"] in CONV_TYPES else None}
+
+
+def softmax_arbiter(logits: torch.Tensor) -> dict:
+    """The generator's last step, softmax(logits / 10) channel 0, on the
+    card's logits in float32 on the card and on the CPU against float64:
+    each one's max abs difference."""
+    def head(x):
+        return torch.softmax(x / 10.0, dim=1)[:, 0]
+
+    want = head(logits.double())
+    return {k: float((head(logits.to(dev)).double().cpu() - want).abs().max())
+            for k, dev in (("card_vs_f64", "cuda"), ("cpu_vs_f64", "cpu"))}
+
+
+def jmean_pairs(root: str, batch: int):
+    """`batch` consecutive frame pairs of the J-mean chain's first
+    sequence, read from its JPEGs as the readers do (RGB, x/255 - 0.5)."""
+    import cv2
+    import numpy as np
+
+    from unsupervised_detection_tpu_torch import e2e_jmean
+
+    e2e_jmean.render_dataset(root)
+    seq_dir = os.path.join(root, "JPEGImages/480p", e2e_jmean.SEQS[0])
+    frames = [cv2.cvtColor(cv2.imread(os.path.join(seq_dir, f)), cv2.COLOR_BGR2RGB)
+              for f in sorted(os.listdir(seq_dir))[:batch + 1]]
+    x = np.stack(frames).astype(np.float32) / 255.0 - 0.5
+    return torch.from_numpy(x[:-1]), torch.from_numpy(x[1:])
+
+
+def gametools_layers() -> dict:
+    """The layer tapes of the inspector's forward, card against CPU, with
+    and without cuDNN's deterministic algorithms, the first layer that
+    parts and its float64 arbiter; the same on the J-mean chain's frames
+    without the deterministic algorithms."""
+    import tempfile
+
+    from unsupervised_detection_tpu_torch.e2e_jmean import CKPT_FILE
+    from unsupervised_detection_tpu_torch.recipe import inspect_mask
+    from unsupervised_detection_tpu_torch.recipe.game import VAL_SEED, Game, GameArgs
+    from unsupervised_detection_tpu_torch.recipe.scenes import game_draws, render_game
+
+    h, w, b = GAMETOOLS_INSPECT_HW_BATCH
+    games = {}
+    for device in ("cuda", "cpu"):
+        games[device] = Game(GameArgs(batch=b, height=h, width=w, pwc_ckpt=CKPT_FILE,
+                                      device=device))
+        inspect_mask.load_generator(CKPT_FILE, games[device].state.generator)
+    draws = game_draws(torch.Generator().manual_seed(VAL_SEED), b, h, w,
+                       games["cuda"].args.side)
+    # the card's render on both sides (the card's and the CPU's agree to 2.98e-8)
+    scenes = render_game(draws, h, w, games["cuda"].args.side, with_pairs=True, device="cuda")
+    pairs = {"game scenes": lambda: scenes[:2]}
+    with tempfile.TemporaryDirectory() as tmp:
+        video = jmean_pairs(tmp, VIDEO_PAIRS)
+    pairs["J-mean video pan_a"] = lambda: video
+    out = {}
+    for what, image_fn in pairs.items():
+        t0 = time.perf_counter()
+        cpu, cpu_mask = tape_forward(games["cpu"].objective, image_fn, "cpu")
+        log(f"gametools: layers {what}: the CPU's tape {time.perf_counter() - t0:.2f} s")
+        runs = (False, True) if what == "game scenes" else (False,)
+        for det in runs:
+            label = f"{what}, cuDNN {'deterministic' if det else 'default'}"
+            card, card_mask = tape_forward(games["cuda"].objective, image_fn, "cuda", det)
+            rows = compare_tapes(card, cpu)
+            first = next((i for i, r in enumerate(rows) if r["rel"] > LAYER_TOL), None)
+            for i, r in enumerate(rows):
+                if r["kind"] != "PWCConv" or i == first:
+                    log(f"gametools: layers {label}: {r['name']} ({r['kind']}) max abs diff "
+                        f"{r['abs']:.3g}, over its largest |value| {r['max']:.3g}: "
+                        f"{r['rel']:.3g}{'  <- first above ' + str(LAYER_TOL) if i == first else ''}")
+            names = [r["name"] for r in rows]
+            flow_in = card[names.index("resize_to_working")]["out"][1]
+            std = flow_in.std(dim=(1, 2), unbiased=False)
+            row = {"mask_err": float((card_mask - cpu_mask).abs().max()),
+                   "first": rows[first] if first is not None else None,
+                   "flow_std_min_max": [float(std.min()), float(std.max())],
+                   "logits": rows[names.index("generator.conv17")],
+                   "softmax": softmax_arbiter(card[names.index("generator.conv17")]["out"][0])}
+            if first is not None:
+                again, _ = tape_forward(games["cuda"].objective, image_fn, "cuda", det,
+                                        keep_args={rows[first]["name"]})
+                row["arbiter"] = arbiter(again[first])
+            log(f"gametools: layers {label}: mask max abs err {row['mask_err']:.3g}; the flow "
+                f"/ 80's per-sample std {row['flow_std_min_max']}; the logits (conv17) "
+                f"{json.dumps(row['logits'])}; the softmax(logits / 10) step alone on the card's "
+                f"logits against float64 {json.dumps(row['softmax'])}; first layer above "
+                f"{LAYER_TOL}: {json.dumps(row['first'])}; float64 arbiter from the card's input: "
+                f"{json.dumps(row.get('arbiter'))}; {time.perf_counter() - t0:.2f} s so far "
+                f"[{card_line()}]")
+            out[label] = row
+    return out
+
+
 def gametools_stats() -> None:
     """`game_stats` on the port's two game logs and the JAX arms' four."""
     from unsupervised_detection_tpu_torch.recipe import game_stats
@@ -3200,6 +3812,8 @@ def phase_gametools(report: dict) -> None:
     t["synth"] = time.perf_counter() - t0
     inspected = gametools_inspect(report)
     t["inspect"] = time.perf_counter() - t0 - sum(t.values())
+    report["gametools_layers"] = gametools_layers()
+    t["layers"] = time.perf_counter() - t0 - sum(t.values())
     gametools_stats()
     t["stats"] = time.perf_counter() - t0 - sum(t.values())
     total = dict(synth_out["launches"])
@@ -3762,6 +4376,7 @@ def main() -> int:
             "launches_jmean": report["launches_jmean"][name],
             "launches_recipe": report["launches_recipe"][name],
             "launches_gametools": report["launches_gametools"][name],
+            "launches_scan": report["launches_scan"][name],
             "launches_train": 0 if backward else report["launches_train"][name],
             "launches_pretrain": report["launches_pretrain"][name],
             "launches_mesh": report["launches_mesh"][name],

@@ -20,7 +20,7 @@ from unsupervised_detection_tpu_torch import pretrain_recover as pretrain_recove
 from unsupervised_detection_tpu_torch import test_generator_ensemble
 from unsupervised_detection_tpu_torch.benchlib import build_forward
 from unsupervised_detection_tpu_torch.eval import EnsembleEvaluator, Evaluator
-from unsupervised_detection_tpu_torch.postproc.propagate import pwc_flow_fn
+from unsupervised_detection_tpu_torch.postproc.propagate import pwc_flow_fn, scan_propagate
 from unsupervised_detection_tpu_torch.recipe import flow_diag as recipe_flow_diag
 from unsupervised_detection_tpu_torch.recipe import game as recipe_game
 from unsupervised_detection_tpu_torch.recipe import game_stats as recipe_game_stats
@@ -34,6 +34,7 @@ from unsupervised_detection_tpu_torch.train.learner import AdversarialLearner
 from unsupervised_detection_tpu_torch.train.objective import AdversarialObjective
 from unsupervised_detection_tpu_torch.train.pretrain import pretrain_recover
 from unsupervised_detection_tpu_torch.train.pretrain_pwc import pretrain_pwc
+from unsupervised_detection_tpu_torch.utils import profiling
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "unsupervised_detection_tpu_torch")
@@ -50,7 +51,8 @@ def _port_sources():
 
 def test_imports_with_jax_blocked():
     # every module of the port, and chip_smoke, import in a fresh process in
-    # which importing JAX, flax, orbax, the JAX package or TensorFlow raises
+    # which importing JAX, flax, orbax, the JAX package or TensorFlow raises;
+    # scan_propagate and the profiling helpers run there
     code = f"""
 import importlib, pkgutil, sys
 for name in {BLOCKED!r}:
@@ -60,6 +62,10 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 for name in names:
     importlib.import_module(name)
 import chip_smoke
+from unsupervised_detection_tpu_torch.postproc.propagate import scan_propagate
+from unsupervised_detection_tpu_torch.utils.profiling import StepTimer, sync, trace
+import torch
+sync(scan_propagate(torch.rand(3, 4, 5), torch.zeros(2, 4, 5, 2)))
 leaked = [m for m in sys.modules if m.split(".")[0] in {BLOCKED!r} and sys.modules[m] is not None]
 assert not leaked, leaked
 print(len(names))
@@ -150,6 +156,11 @@ def test_wrappers_take_plain_version_only_on_cpu():
     counts = (cost_volume.launches, dense_image_warp.launches)
     assert cost_volume(a, a, 2).shape == (1, 4, 6, 25)
     assert dense_image_warp(a, flow).shape == a.shape
+    # the device propagation and the completion helper on CPU tensors: the
+    # plain warp, no launch counted
+    avg = scan_propagate(torch.rand(3, 4, 6), torch.zeros(2, 4, 6, 2))
+    profiling.sync(avg)
+    assert avg.shape == (3, 4, 6)
     assert (cost_volume.launches, dense_image_warp.launches) == counts
     # a tensor on neither the CPU nor a CUDA device is refused, not sent to
     # the plain version

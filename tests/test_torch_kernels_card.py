@@ -279,3 +279,23 @@ def test_autograd_on_the_card_goes_through_the_kernels(cuda_device):
     assert (cost_volume_backward.launches, warp_backward.launches) == (counts[0] + 1,
                                                                        counts[1] + 1)
     assert bool(torch.isfinite(image.grad).all()) and bool(torch.isfinite(flow.grad).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,h,w", [(6, 48, 80), (24, 192, 384)])
+def test_scan_propagate_on_the_card_matches_plain(cuda_device, t, h, w):
+    """postproc.propagate.scan_propagate on CUDA tensors (the warp kernel
+    at B = 1, C = 1, 2(T-1) launches) against the same call on CPU tensors
+    (warp_plain): the kernel repeats warp_plain's arithmetic and max is
+    exact, so within 1e-6 (bit-equal expected)."""
+    from unsupervised_detection_tpu_torch.postproc.propagate import scan_propagate
+
+    rs = np.random.RandomState(3)
+    masks = torch.from_numpy(rs.rand(t, h, w).astype(np.float32))
+    flows = torch.from_numpy(rs.uniform(-6.0, 6.0, (t - 1, h, w, 2)).astype(np.float32))
+    want = scan_propagate(masks, flows)
+    before = dense_image_warp.launches
+    got = scan_propagate(masks.to(cuda_device), flows.to(cuda_device))
+    torch.cuda.synchronize()
+    assert dense_image_warp.launches == before + 2 * (t - 1)
+    assert (got.cpu() - want).abs().max().item() <= 1e-6

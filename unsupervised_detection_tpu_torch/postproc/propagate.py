@@ -16,8 +16,10 @@ correspondences from im_a's grid into im_b):
   * any callable -- e.g. `pwc_flow_fn`, the port's PWC net on the card.
 
 The host functions (`farneback_flow` to `propagate_sequences`) are copies
-of the JAX package's. The JAX package's `scan_propagate`, the same
-recurrence on the device, has no caller there or here and is not ported.
+of the JAX package's. `scan_propagate` is the same recurrence on the
+device over given flows: a Python loop of device ops through
+`ops/warp.py::dense_image_warp` (the kernel of csrc/warp.cu on CUDA
+tensors), where JAX runs a `lax.scan` over its own warp.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ import torch
 
 from ..device import precision_scope, resolve_device
 from ..models import PWCNet
+from ..ops.warp import dense_image_warp
 
 W_R = 0.85
 
@@ -188,3 +191,48 @@ def propagate_sequences(out_path: str, seq_names: Sequence[str],
             m["running_avg_b"] = b_avg
             sio.savemat(name, m)
 
+
+def scan_propagate(masks: torch.Tensor, flows: torch.Tensor, w_r: float = W_R) -> torch.Tensor:
+    """The propagation recurrence on the device over given flows, as the
+    JAX package's `scan_propagate`. `flows` holds per-step (u, v) maps from
+    frame t's grid into frame t-1 (the host loop's convention).
+
+    Args:
+        masks: (T, H, W) float32 soft masks.
+        flows: (T-1, H, W, 2) float32, channel 0 = u (x displacement),
+            channel 1 = v (y displacement), on the masks' device.
+    Returns:
+        (T, H, W) running averages (forward direction).
+
+    Each step warps the previous mask and the running average (two calls
+    of `dense_image_warp` at B = 1, C = 1: 2(T-1) kernel launches on CUDA
+    tensors) and max-normalizes after each of its three updates. The
+    warp's border is the edge clamp, where the host loop's cv2.remap fills
+    zeros. Nothing in the loop waits for the device.
+    """
+    if masks.dtype != torch.float32 or flows.dtype != torch.float32:
+        raise TypeError(f"scan_propagate: masks {masks.dtype} and flows {flows.dtype}; "
+                        "both must be float32")
+    t, h, w = masks.shape
+    if tuple(flows.shape) != (t - 1, h, w, 2):
+        raise ValueError(f"scan_propagate: flows {tuple(flows.shape)} must be "
+                         f"{(t - 1, h, w, 2)} for masks {tuple(masks.shape)}")
+
+    def warp(m, uv):
+        # dense_image_warp samples at (y - flow_y, x - flow_x); remap samples
+        # at (y + v, x + u): negate and swap into (dy, dx) channels
+        flow_yx = torch.stack([-uv[..., 1], -uv[..., 0]], dim=-1)
+        return dense_image_warp(m[None, :, :, None].contiguous(), flow_yx[None])[0, :, :, 0]
+
+    running = masks[0]
+    out = [running]
+    for step in range(t - 1):
+        uv = flows[step]
+        warped = warp(masks[step], uv)
+        warped = warped / (torch.max(warped) + 1e-8)
+        running = warp(running, uv)
+        running = running / (torch.max(running) + 1e-8)
+        running = (1 - w_r) * warped + w_r * running
+        running = running / (torch.max(running) + 1e-8)
+        out.append(running)
+    return torch.stack(out)

@@ -40,31 +40,10 @@ from ..convert import flax_paths
 from ..data import TestPipeline, TrainPipeline, get_reader
 from ..device import resolve_device
 from ..parallel.mesh import Mesh
+from ..utils.profiling import StepTimer
 from . import checkpoint as ckpt
 from .learner import AdversarialLearner
 from .tf1_import import is_tf_checkpoint
-
-
-class StepTimer:
-    """Rolling wall-clock throughput of the train loop (counterpart of
-    utils/profiling.py::StepTimer)."""
-
-    def __init__(self, batch_size: int, window: int = 50):
-        self.batch_size, self.window = batch_size, window
-        self._times: list[float] = []
-        self._last: Optional[float] = None
-
-    def tick(self) -> None:
-        now = time.perf_counter()
-        if self._last is not None:
-            self._times = (self._times + [now - self._last])[-self.window:]
-        self._last = now
-
-    @property
-    def frames_per_second(self) -> float:
-        if not self._times:
-            return float("nan")
-        return self.batch_size * len(self._times) / sum(self._times)
 
 
 def _writer(logdir: str):

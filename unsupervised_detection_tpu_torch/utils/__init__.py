@@ -1,2 +1,2 @@
-"""Host-side helpers of the port: the visualizers of the dense evaluation
-path (`visualization.py`)."""
+"""Host-side helpers of the port: the visualizers (`visualization.py`) and
+the trace context, completion helper and step timer (`profiling.py`)."""
