@@ -1,0 +1,7 @@
+"""% of the traced window the card idled while the host was in `ud.data.device_batch` (device)."""
+
+from bench_port.lib import spans
+
+
+def read(ctx):
+    return spans.idle_share(ctx["window"], spans.FEEDER)

@@ -30,6 +30,7 @@ from ..ops.metrics import eval_iou_mae
 from ..ops.resize import central_crop_resize, resize_nearest
 from ..parallel.mesh import Mesh
 from ..train.objective import AdversarialObjective
+from ..utils.profiling import span
 from ..utils.visualization import postprocess_image, postprocess_mask
 
 DES_WIDTH = 640
@@ -94,22 +95,26 @@ class Evaluator:
     def device_batch(self, batch):
         """Raw/host batch (a `TestPipeline` dict) -> reader-resolution
         (img1, img2, gt) on the device: this rank's rows."""
-        img1, img2 = self.feeder.images(batch)
-        return img1, img2, self.feeder.mask(batch)
+        with span("ud.data.device_batch"):
+            img1, img2 = self.feeder.images(batch)
+            return img1, img2, self.feeder.mask(batch)
 
     def _masks(self, img1, img2, gt):
         """The reference order (build_test_graph, adversarial_learner.py:
-        450-523): central crop, PWC flow, working resize, mask. Returns the
-        working-resolution (image, flow, gt, mask)."""
+        450-523): central crop, PWC flow, working resize, mask; the ground
+        truth's resize to the working resolution, which nothing else reads,
+        is taken with the crop. Returns the working-resolution (image, flow,
+        gt, mask)."""
         cfg, obj = self.config, self.objective
-        img1, img2, gt = (t.to(self.device) for t in (img1, img2, gt))
-        if cfg.test_crop != 1.0:
-            img1 = central_crop_resize(img1, cfg.test_crop)
-            img2 = central_crop_resize(img2, cfg.test_crop)
-            gt = central_crop_resize(gt, cfg.test_crop)
+        with span("ud.model.crop"):
+            img1, img2, gt = (t.to(self.device) for t in (img1, img2, gt))
+            if cfg.test_crop != 1.0:
+                img1 = central_crop_resize(img1, cfg.test_crop)
+                img2 = central_crop_resize(img2, cfg.test_crop)
+                gt = central_crop_resize(gt, cfg.test_crop)
+            gt = resize_nearest(gt, (cfg.img_height, cfg.img_width))
         flow = obj.compute_flow(img1, img2)
         image, flow = obj.resize_to_working(img1, flow)
-        gt = resize_nearest(gt, (cfg.img_height, cfg.img_width))
         return image, flow, gt, obj.generate_mask(image, flow)
 
     @torch.inference_mode()
@@ -138,7 +143,8 @@ class Evaluator:
         """
         with precision_scope(self.objective.dtype):
             _, _, gt, mask = self._masks(img1, img2, gt)
-            iou_b, mae_b = eval_iou_mae(mask.float(), gt.float())
+            with span("ud.eval.metrics"):
+                iou_b, mae_b = eval_iou_mae(mask.float(), gt.float())
         return {"iou": iou_b, "mae": mae_b}
 
 
@@ -195,11 +201,17 @@ def evaluate_dataset(config: Config, evaluator: Evaluator, save_dir: Optional[st
     category_iou: Dict[str, list] = {}
     category_mae: Dict[str, list] = {}
     i = 0
-    for batch in batches:
+    batches = iter(batches)
+    while True:
+        with span("ud.eval.feed"):
+            batch = next(batches, None)
+        if batch is None:
+            break
         if not dense:
             out = evaluator.infer_metrics(*evaluator.device_batch(batch))
-            ious = mesh.gather_data(out["iou"]).cpu().numpy()
-            maes = mesh.gather_data(out["mae"]).cpu().numpy()
+            with span("ud.eval.result_copy"):
+                ious = mesh.gather_data(out["iou"]).cpu().numpy()
+                maes = mesh.gather_data(out["mae"]).cpu().numpy()
             for b in range(ious.shape[0]):
                 category = batch["category"][b]
                 category_iou.setdefault(category, []).append(float(ious[b]))
@@ -207,7 +219,8 @@ def evaluate_dataset(config: Config, evaluator: Evaluator, save_dir: Optional[st
                 i += 1
             continue
         out = evaluator.infer(*evaluator.device_batch(batch))
-        out = {k: mesh.gather_data(v).cpu().numpy() for k, v in out.items()}
+        with span("ud.eval.result_copy"):
+            out = {k: mesh.gather_data(v).cpu().numpy() for k, v in out.items()}
         for b in range(out["input_image"].shape[0]):
             gt_mask = out["gt_masks"][b]
             category = batch["category"][b]

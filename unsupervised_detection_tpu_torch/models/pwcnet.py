@@ -27,6 +27,7 @@ from torch import nn
 from ..ops.cost_volume import cost_volume, cost_volume_forward, dy_rows
 from ..ops.resize import resize_bilinear
 from ..ops.warp import dense_image_warp
+from ..utils.profiling import span
 from .layers import ConvTranspose2D, PWCConv
 
 PYRAMID_CHANNELS = (None, 16, 32, 64, 96, 128, 196)
@@ -143,36 +144,37 @@ class PWCNet(nn.Module):
         """Flow of the pair, float32 NHWC. With `return_pyramid`, also the
         per-level flows, coarse to fine (L6..L2), NHWC in the compute dtype,
         as `(flow, flow_pyr)`: what pretraining's multiscale EPE reads."""
-        b = img1.shape[0]
-        both = torch.cat([img1 + 0.5, img2 + 0.5], dim=0).to(self.dtype)
-        feats = self.featpyr(_nchw(both))
-        c1 = [None] + [f[:b] for f in feats]
-        c2 = [None] + [f[b:] for f in feats]
+        with span("ud.model.pwc"):
+            b = img1.shape[0]
+            both = torch.cat([img1 + 0.5, img2 + 0.5], dim=0).to(self.dtype)
+            feats = self.featpyr(_nchw(both))
+            c1 = [None] + [f[:b] for f in feats]
+            c2 = [None] + [f[b:] for f in feats]
 
-        up_flow = up_feat = None
-        flow_pyr = []
-        for lvl in range(self.pyr_lvls, self.flow_pred_lvl - 1, -1):
-            if lvl == self.pyr_lvls:
-                x = _nchw(self._cost_volume(_nhwc(c1[lvl]), _nhwc(c2[lvl])))
-            else:
-                # upsampled flow in this level's pixel units (model_pwcnet.py:616)
-                warped = dense_image_warp(_nhwc(c2[lvl]), _nhwc(up_flow * (20.0 / 2**lvl)))
-                corr = _nchw(self._cost_volume(_nhwc(c1[lvl]), warped))
-                x = torch.cat([corr, c1[lvl], up_flow, up_feat], dim=1)
-            feat, flow = getattr(self, f"estimator{lvl}")(x)
-            flow = getattr(self, f"ctxt{lvl}")(feat, flow)
-            flow_pyr.append(flow)
-            if lvl != self.flow_pred_lvl:
-                up_flow = getattr(self, f"up_flow{lvl}")(flow)
-                up_feat = getattr(self, f"up_feat{lvl}")(feat)
+            up_flow = up_feat = None
+            flow_pyr = []
+            for lvl in range(self.pyr_lvls, self.flow_pred_lvl - 1, -1):
+                if lvl == self.pyr_lvls:
+                    x = _nchw(self._cost_volume(_nhwc(c1[lvl]), _nhwc(c2[lvl])))
+                else:
+                    # upsampled flow in this level's pixel units (model_pwcnet.py:616)
+                    warped = dense_image_warp(_nhwc(c2[lvl]), _nhwc(up_flow * (20.0 / 2**lvl)))
+                    corr = _nchw(self._cost_volume(_nhwc(c1[lvl]), warped))
+                    x = torch.cat([corr, c1[lvl], up_flow, up_feat], dim=1)
+                feat, flow = getattr(self, f"estimator{lvl}")(x)
+                flow = getattr(self, f"ctxt{lvl}")(feat, flow)
+                flow_pyr.append(flow)
+                if lvl != self.flow_pred_lvl:
+                    up_flow = getattr(self, f"up_flow{lvl}")(flow)
+                    up_feat = getattr(self, f"up_feat{lvl}")(feat)
 
-        flow = _nhwc(flow.float())
-        if upsample_output:
-            scaler = 2**self.flow_pred_lvl
-            size = (flow.shape[1] * scaler, flow.shape[2] * scaler)
-            flow = resize_bilinear(flow, size) * scaler
-        # else quarter resolution: the caller fuses the x4 upsample into its
-        # own resize and applies the x4 magnitude scale
-        if return_pyramid:
-            return flow, [_nhwc(f) for f in flow_pyr]
-        return flow
+            flow = _nhwc(flow.float())
+            if upsample_output:
+                scaler = 2**self.flow_pred_lvl
+                size = (flow.shape[1] * scaler, flow.shape[2] * scaler)
+                flow = resize_bilinear(flow, size) * scaler
+            # else quarter resolution: the caller fuses the x4 upsample into its
+            # own resize and applies the x4 magnitude scale
+            if return_pyramid:
+                return flow, [_nhwc(f) for f in flow_pyr]
+            return flow

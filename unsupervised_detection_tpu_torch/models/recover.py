@@ -15,6 +15,7 @@ import torch
 from torch import nn
 
 from ..ops.resize import resize_bilinear
+from ..utils.profiling import span
 from .layers import BiasedConv, ResizeConv
 
 # (name, out channels at f=1, kernel, stride) of each encoder stream
@@ -55,24 +56,25 @@ class RecoverNet(nn.Module):
 
     def forward(self, img1: torch.Tensor, flow_masked: torch.Tensor,
                 mask: torch.Tensor) -> torch.Tensor:
-        orig_hw = (img1.shape[1], img1.shape[2])
-        ones = torch.ones_like(flow_masked[..., 0:1])
-        flow_in = torch.cat([flow_masked, ones, 1.0 - mask], dim=3)
-        skips = {}
-        for stream, x in (("a", img1), ("b", flow_in)):
-            x = x.to(self.dtype).permute(0, 3, 1, 2)
-            for name, _, _, _ in ENCODER:
-                x = getattr(self, stream + name)(x)
-                skips[stream + name] = x
+        with span("ud.model.recover"):
+            orig_hw = (img1.shape[1], img1.shape[2])
+            ones = torch.ones_like(flow_masked[..., 0:1])
+            flow_in = torch.cat([flow_masked, ones, 1.0 - mask], dim=3)
+            skips = {}
+            for stream, x in (("a", img1), ("b", flow_in)):
+                x = x.to(self.dtype).permute(0, 3, 1, 2)
+                for name, _, _, _ in ENCODER:
+                    x = getattr(self, stream + name)(x)
+                    skips[stream + name] = x
 
-        x = torch.cat([skips["aconv6"], skips["bconv6"]], dim=1)
-        flow = None
-        for lvl, _, skip in DECODER:
-            size = tuple(skips["b" + skip].shape[2:])
-            parts = [getattr(self, f"deconv{lvl}")(x, size), skips["b" + skip],
-                     skips["a" + skip]]
-            if flow is not None:
-                parts.append(getattr(self, f"upflow{lvl}")(flow, size))
-            x = torch.cat(parts, dim=1)
-            flow = getattr(self, f"flow{lvl}")(x)
-        return resize_bilinear(flow.float().permute(0, 2, 3, 1), orig_hw)
+            x = torch.cat([skips["aconv6"], skips["bconv6"]], dim=1)
+            flow = None
+            for lvl, _, skip in DECODER:
+                size = tuple(skips["b" + skip].shape[2:])
+                parts = [getattr(self, f"deconv{lvl}")(x, size), skips["b" + skip],
+                         skips["a" + skip]]
+                if flow is not None:
+                    parts.append(getattr(self, f"upflow{lvl}")(flow, size))
+                x = torch.cat(parts, dim=1)
+                flow = getattr(self, f"flow{lvl}")(x)
+            return resize_bilinear(flow.float().permute(0, 2, 3, 1), orig_hw)

@@ -42,6 +42,7 @@ from ..ops.flow import flow_to_image_summary
 from ..ops.metrics import disambiguate_forward_background
 from ..ops.resize import central_crop_resize, resize_bilinear
 from ..parallel.mesh import Mesh
+from ..utils.profiling import span
 from .objective import AdversarialObjective
 from .optim import AdamState, adam_apply, adam_init
 
@@ -74,11 +75,14 @@ def _clip_or_noise(rng: torch.Generator, grads, clip_value: float,
     below `noise_threshold` (the all-mask / no-mask minimum), every
     gradient is replaced by |U(-clip, clip)| noise drawn from `rng`
     (loss_utils.py:7-26)."""
-    clipped = [g.clamp(-clip_value, clip_value) for g in grads]
+    with span("ud.train.clip"):
+        clipped = [g.clamp(-clip_value, clip_value) for g in grads]
     if not can_change:
         return clipped
     grad_avg = torch.stack([g.abs().mean() for g in grads]).mean()
-    if not bool(grad_avg < noise_threshold):
+    with span("ud.train.noise_test"):
+        vanishing = bool(grad_avg < noise_threshold)
+    if not vanishing:
         return clipped
     return [(torch.rand(g.shape, generator=rng) * (2.0 * clip_value) - clip_value)
             .abs().to(device=g.device, dtype=g.dtype) for g in grads]
@@ -97,7 +101,8 @@ def apply_update(state: TrainState, params: dict, grads, losses: dict, opt_name:
     batch's losses detached, the applied gradients)."""
     mesh = mesh if mesh is not None else Mesh()
     keys = list(losses)
-    summed = mesh.sum_data(list(grads) + [losses[k] for k in keys])
+    with span("ud.train.all_reduce"):
+        summed = mesh.sum_data(list(grads) + [losses[k] for k in keys])
     grads, losses = summed[:len(grads)], dict(zip(keys, summed[len(grads):]))
     grads = _clip_or_noise(state.rng, grads, config.gradient_clip,
                            config.grad_noise_threshold, can_change)
@@ -142,16 +147,18 @@ class AdversarialLearner:
     def _step(self, state: TrainState, img1, img2, draws, net, loss_key: str,
               opt_name: str, can_change: bool):
         cfg, mesh = self.config, self.mesh
-        if draws is None:
-            b, h, w, _ = img1.shape
-            draws = sample_augment(state.rng, b * mesh.n_data, h, w, cfg.train_crop)
         params = dict(net.named_parameters())
         with precision_scope(self.dtype):
-            img1, img2 = augment_pair(mesh.shard(draws), img1, img2)
+            with span("ud.train.augment"):
+                if draws is None:
+                    b, h, w, _ = img1.shape
+                    draws = sample_augment(state.rng, b * mesh.n_data, h, w, cfg.train_crop)
+                img1, img2 = augment_pair(mesh.shard(draws), img1, img2)
             net.requires_grad_(True)
             try:
                 out = self.objective.forward(img1, img2)
-                grads = torch.autograd.grad(out.losses[loss_key], list(params.values()))
+                with span("ud.train.backward"):
+                    grads = torch.autograd.grad(out.losses[loss_key], list(params.values()))
             finally:
                 net.requires_grad_(False)
         return apply_update(state, params, grads, out.losses, opt_name, can_change, cfg,

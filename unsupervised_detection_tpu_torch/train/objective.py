@@ -41,6 +41,7 @@ from ..ops.losses import charbonnier_loss
 from ..ops.metrics import compute_all_iou
 from ..ops.resize import resize_bilinear, resize_bilinear_composed, resize_nearest
 from ..parallel.mesh import Mesh
+from ..utils.profiling import span
 
 
 class ForwardOutputs(NamedTuple):
@@ -103,21 +104,23 @@ class AdversarialObjective:
         cfg = self.config
         d = cfg.flow_resolution_divisor
         size = (cfg.img_height, cfg.img_width)
-        image = resize_bilinear(img1, size)
-        if self.fuse_flow_resize:
-            # quarter-res flow -> working res in one composed resize; the x4
-            # magnitude scale and the divisor commute with the resize
-            mid = (cfg.reader_height // d, cfg.reader_width // d)
-            scale = 2**self.pwc.flow_pred_lvl * d
-            flow = resize_bilinear_composed(flow, mid, size) * (scale / cfg.flow_normalizer)
-        else:
-            if d > 1:
-                flow = flow * d
-            flow = resize_bilinear(flow, size) / cfg.flow_normalizer
+        with span("ud.model.working_resize"):
+            image = resize_bilinear(img1, size)
+            if self.fuse_flow_resize:
+                # quarter-res flow -> working res in one composed resize; the x4
+                # magnitude scale and the divisor commute with the resize
+                mid = (cfg.reader_height // d, cfg.reader_width // d)
+                scale = 2**self.pwc.flow_pred_lvl * d
+                flow = resize_bilinear_composed(flow, mid, size) * (scale / cfg.flow_normalizer)
+            else:
+                if d > 1:
+                    flow = flow * d
+                flow = resize_bilinear(flow, size) / cfg.flow_normalizer
         return image, flow
 
     def generate_mask(self, image: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
-        return self.generator(image, standardize_flow(flow))
+        with span("ud.model.generator"):
+            return self.generator(image, standardize_flow(flow))
 
     # --- losses -----------------------------------------------------------
     def _share(self, mean: torch.Tensor) -> torch.Tensor:

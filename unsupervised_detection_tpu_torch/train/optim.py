@@ -29,6 +29,8 @@ from collections.abc import Iterable, Mapping
 import numpy as np
 import torch
 
+from ..utils.profiling import span
+
 
 @dataclasses.dataclass
 class AdamState:
@@ -61,14 +63,15 @@ def adam_apply(grads: Mapping[str, torch.Tensor], opt: AdamState,
                b2: float, eps: float) -> AdamState:
     """One Adam step with bias-correction step `t` (>= 1): updates `params`
     in place and returns the new state (this net's count + 1)."""
-    lr_t = lr_at(t, lr, b1, b2)
-    m, v = {}, {}
-    for k, p in params.items():
-        g = grads[k]
-        m[k] = b1 * opt.m[k] + (1.0 - b1) * g
-        v[k] = b2 * opt.v[k] + (1.0 - b2) * g * g
-        p.sub_(lr_t * m[k] / (torch.sqrt(v[k]) + eps))
-    return AdamState(count=opt.count + 1, m=m, v=v)
+    with span("ud.train.adam"):
+        lr_t = lr_at(t, lr, b1, b2)
+        m, v = {}, {}
+        for k, p in params.items():
+            g = grads[k]
+            m[k] = b1 * opt.m[k] + (1.0 - b1) * g
+            v[k] = b2 * opt.v[k] + (1.0 - b2) * g * g
+            p.sub_(lr_t * m[k] / (torch.sqrt(v[k]) + eps))
+        return AdamState(count=opt.count + 1, m=m, v=v)
 
 
 # --- the pretraining stages' optimizer (optax.adam) --------------------------
@@ -97,22 +100,23 @@ class OptaxAdam:
         (default: the constructor's)."""
         lr = self.lr if lr is None else lr
         self.count += 1
-        bc1 = float(_bias_correction(self.b1, self.count))
-        bc2 = float(_bias_correction(self.b2, self.count))
-        grads = list(grads)
-        torch._foreach_mul_(self.m, self.b1)
-        torch._foreach_add_(self.m, torch._foreach_mul(grads, 1.0 - self.b1))
-        sq = torch._foreach_mul(grads, grads)
-        torch._foreach_mul_(sq, 1.0 - self.b2)
-        torch._foreach_mul_(self.v, self.b2)
-        torch._foreach_add_(self.v, sq)
-        denom = torch._foreach_div(self.v, bc2)
-        torch._foreach_sqrt_(denom)
-        torch._foreach_add_(denom, self.eps)
-        update = torch._foreach_div(self.m, bc1)
-        torch._foreach_div_(update, denom)
-        torch._foreach_mul_(update, -lr)
-        torch._foreach_add_(self.params, update)
+        with span("ud.train.adam"):
+            bc1 = float(_bias_correction(self.b1, self.count))
+            bc2 = float(_bias_correction(self.b2, self.count))
+            grads = list(grads)
+            torch._foreach_mul_(self.m, self.b1)
+            torch._foreach_add_(self.m, torch._foreach_mul(grads, 1.0 - self.b1))
+            sq = torch._foreach_mul(grads, grads)
+            torch._foreach_mul_(sq, 1.0 - self.b2)
+            torch._foreach_mul_(self.v, self.b2)
+            torch._foreach_add_(self.v, sq)
+            denom = torch._foreach_div(self.v, bc2)
+            torch._foreach_sqrt_(denom)
+            torch._foreach_add_(denom, self.eps)
+            update = torch._foreach_div(self.m, bc1)
+            torch._foreach_div_(update, denom)
+            torch._foreach_mul_(update, -lr)
+            torch._foreach_add_(self.params, update)
 
 
 def warmup_cosine_lr(count: int, lr: float, steps: int) -> float:

@@ -34,6 +34,7 @@ from ..models import PWCNet
 from ..ops.resize import resize_bilinear
 from ..ops.warp import dense_image_warp
 from ..parallel.mesh import world
+from ..utils.profiling import span
 from . import checkpoint as ckpt
 from .optim import OptaxAdam, warmup_cosine_lr
 
@@ -63,42 +64,43 @@ def synthetic_flow_batch(rng: np.random.RandomState, batch: int, height: int, wi
     host in float64, as numpy evaluates the JAX package's expression, and
     combined on the device in float64 with the same operations, then cast
     to float32. img2 is one launch of the port's warp (C=3)."""
-    device = resolve_device(device)
+    with span("ud.pretrain.scene"):
+        device = resolve_device(device)
 
-    def texture(scale, amp):
-        base = rng.rand(batch, height // scale, width // scale, 3).astype(np.float32)
-        return amp * (_upsample_linear(base, height, width, device) - 0.5)
+        def texture(scale, amp):
+            base = rng.rand(batch, height // scale, width // scale, 3).astype(np.float32)
+            return amp * (_upsample_linear(base, height, width, device) - 0.5)
 
-    img1 = torch.clamp(texture(8, 0.7) + texture(2, 0.3), -0.5, 0.5)
+        img1 = torch.clamp(texture(8, 0.7) + texture(2, 0.3), -0.5, 0.5)
 
-    yn = (np.arange(height, dtype=np.float32) - height / 2) / height   # float32, as np.mgrid
-    xn = (np.arange(width, dtype=np.float32) - width / 2) / width
-    yn64, xn64 = yn.astype(np.float64), xn.astype(np.float64)
-    rows = np.empty((batch, 2, height), np.float64)     # a + l0*yn
-    sines = np.empty((batch, 2, height), np.float64)    # amp*sin(...)
-    cosines = np.empty((batch, 2, width), np.float64)
-    l1 = np.empty((batch, 2), np.float64)
-    for b in range(batch):
-        for ch in range(2):
-            a = rng.uniform(-0.5, 0.5) * max_mag
-            lin = rng.uniform(-0.5, 0.5, 2) * max_mag
-            amp = rng.uniform(-0.3, 0.3) * max_mag
-            fy, fx = rng.uniform(1.0, 3.0, 2)
-            ph = rng.uniform(0, 2 * np.pi, 2)
-            rows[b, ch] = a + lin[0] * yn64
-            l1[b, ch] = lin[1]
-            sines[b, ch] = amp * np.sin(2 * np.pi * fy * yn64 + ph[0])
-            cosines[b, ch] = np.cos(2 * np.pi * fx * xn64 + ph[1])
+        yn = (np.arange(height, dtype=np.float32) - height / 2) / height   # float32, as np.mgrid
+        xn = (np.arange(width, dtype=np.float32) - width / 2) / width
+        yn64, xn64 = yn.astype(np.float64), xn.astype(np.float64)
+        rows = np.empty((batch, 2, height), np.float64)     # a + l0*yn
+        sines = np.empty((batch, 2, height), np.float64)    # amp*sin(...)
+        cosines = np.empty((batch, 2, width), np.float64)
+        l1 = np.empty((batch, 2), np.float64)
+        for b in range(batch):
+            for ch in range(2):
+                a = rng.uniform(-0.5, 0.5) * max_mag
+                lin = rng.uniform(-0.5, 0.5, 2) * max_mag
+                amp = rng.uniform(-0.3, 0.3) * max_mag
+                fy, fx = rng.uniform(1.0, 3.0, 2)
+                ph = rng.uniform(0, 2 * np.pi, 2)
+                rows[b, ch] = a + lin[0] * yn64
+                l1[b, ch] = lin[1]
+                sines[b, ch] = amp * np.sin(2 * np.pi * fy * yn64 + ph[0])
+                cosines[b, ch] = np.cos(2 * np.pi * fx * xn64 + ph[1])
 
-    def dev(a):
-        return torch.from_numpy(a).to(device)
+        def dev(a):
+            return torch.from_numpy(a).to(device)
 
-    field = ((dev(rows)[..., :, None] + dev(l1)[..., None, None] * dev(xn64))
-             + dev(sines)[..., :, None] * dev(cosines)[..., None, :])     # (B, 2, H, W)
-    flow = torch.clamp(field.permute(0, 2, 3, 1).to(torch.float32), -max_mag, max_mag)
-    with torch.no_grad():
-        img2 = dense_image_warp(img1, (-flow).contiguous())
-    return img1, img2, flow.contiguous()
+        field = ((dev(rows)[..., :, None] + dev(l1)[..., None, None] * dev(xn64))
+                 + dev(sines)[..., :, None] * dev(cosines)[..., None, :])     # (B, 2, H, W)
+        flow = torch.clamp(field.permute(0, 2, 3, 1).to(torch.float32), -max_mag, max_mag)
+        with torch.no_grad():
+            img2 = dense_image_warp(img1, (-flow).contiguous())
+        return img1, img2, flow.contiguous()
 
 
 def boundary_band(mask: torch.Tensor, radius: int = 4) -> torch.Tensor:
@@ -215,7 +217,8 @@ class PWCPretrainer:
         with precision_scope(self.dtype):
             loss, epe, regions = pwc_loss(self.net, img1, img2, flow_gt, obj_mask,
                                           **self.loss_kw)
-            grads = torch.autograd.grad(loss, self.params)
+            with span("ud.train.backward"):
+                grads = torch.autograd.grad(loss, self.params)
         return loss.detach(), epe.detach(), regions, grads
 
     def step(self, img1, img2, flow_gt, obj_mask=None):
